@@ -1,0 +1,121 @@
+"""Shared building blocks for the 1D backbones.
+
+Counterpart of ``deepards_tpu/models/layers.py``.  Conventions:
+
+- backbones take and return (N, C, L), PyTorch's layout for ``conv1d``;
+- ``BatchStatNorm`` always normalizes by the current batch's statistics
+  (there are no running averages and no train/eval switch), computed in
+  float32 with the biased variance;
+- the ``bn_row_mask`` scope carries a row-validity mask into every
+  ``BatchStatNorm`` whose row count matches it, so pad rows drop out of the
+  statistics and a padded batch normalizes its real rows exactly as a
+  true-size batch would.
+"""
+import contextlib
+import contextvars
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# Stack of row masks scoped by ``bn_row_mask``.  A ContextVar keeps scopes
+# opened in different threads (the server's handler threads) apart.
+_BN_ROW_MASK = contextvars.ContextVar("bn_row_mask", default=())
+
+
+@contextlib.contextmanager
+def bn_row_mask(mask):
+    """Scope a per-row validity mask for BatchStatNorm statistics.
+
+    ``mask`` has one entry per backbone row (B*S for windows folded into
+    rows).  Within the scope, every BatchStatNorm whose rows per
+    statistics group equal ``len(mask)`` computes mask-weighted mean and
+    variance; norms over another row count ignore it.
+    """
+    if mask is None:
+        yield
+        return
+    token = _BN_ROW_MASK.set(_BN_ROW_MASK.get() + (torch.as_tensor(mask),))
+    try:
+        yield
+    finally:
+        _BN_ROW_MASK.reset(token)
+
+
+def current_bn_row_mask(n_rows):
+    """The innermost scoped mask if one is set AND matches ``n_rows``."""
+    stack = _BN_ROW_MASK.get()
+    if not stack:
+        return None
+    mask = stack[-1]
+    return mask if mask.shape[0] == n_rows else None
+
+
+def conv_kernel_init(weight, generator=None):
+    """Fill a conv weight (Cout, Cin, K) with normal(0, sqrt(2/(K*Cout))),
+    the JAX package's conv initializer, drawn from ``generator``."""
+    out_ch, _, k = weight.shape
+    std = math.sqrt(2.0 / (k * out_ch))
+    with torch.no_grad():
+        weight.copy_(
+            torch.randn(weight.shape, generator=generator) * std
+        )
+    return weight
+
+
+class BatchStatNorm(nn.Module):
+    """BatchNorm over (N, C, L) that always uses current-batch statistics.
+
+    ``forward(x, groups)`` splits the N rows into ``groups`` equal
+    consecutive groups with statistics of their own: ``groups=B`` over
+    B*S window rows gives each sample's S windows their own statistics
+    (``bn_scope='sequence'``) in one grouped reduction.
+    """
+
+    def __init__(self, num_features, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x, groups=1):
+        n, c, length = x.shape
+        rows = n // groups
+        xf = x.float().reshape(groups, rows, c, length)
+        axes = (1, 3)
+        row_mask = current_bn_row_mask(rows)
+        if row_mask is not None:
+            # mask-weighted statistics: pad rows contribute nothing
+            m = row_mask.to(device=x.device, dtype=torch.float32)
+            m = m.reshape(1, rows, 1, 1)
+            count = torch.clamp(m.sum(), min=1.0) * float(length)
+            mean = (xf * m).sum(dim=axes, keepdim=True) / count
+            var = ((xf - mean).square() * m).sum(
+                dim=axes, keepdim=True) / count
+        else:
+            var, mean = torch.var_mean(
+                xf, dim=axes, correction=0, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.weight.reshape(1, 1, c, 1) + self.bias.reshape(1, 1, c, 1)
+        return y.reshape(n, c, length).to(x.dtype)
+
+
+def max_pool1d(x, window, stride, padding=0):
+    """Max pool over L of (N, C, L); padding is -inf, so it never wins."""
+    if padding:
+        x = F.pad(x, (padding, padding), value=float("-inf"))
+    return F.max_pool1d(x, window, stride)
+
+
+def avg_pool1d(x, window, stride, padding=0):
+    """Average pool over L of (N, C, L); zero padding counts in the mean."""
+    return F.avg_pool1d(x, window, stride, padding, count_include_pad=True)
+
+
+def global_avg_pool_flatten(x, window=7):
+    """AvgPool1d(window, stride=1) then flatten: the backbone epilogue.
+    Expects a final length equal to ``window``.  Flattens length-major,
+    as the JAX package's (N, L, C) layout does."""
+    x = avg_pool1d(x, window, 1)
+    return x.transpose(1, 2).reshape(x.shape[0], -1)
