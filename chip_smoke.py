@@ -5,8 +5,10 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 builds the CUDA kernels from the checkout's sources with nvcc, holds each
-kernel against its plain PyTorch version, then drives the port's main
-path: a server over a full-width cnn_linear/densenet18 checkpoint (random
+kernel against its plain PyTorch version (the DTW kernel exactly, at six
+shapes, each timed beside a bound computed from the FP32 instructions per
+cell in the kernel's SASS and the card's SM clock), then drives the port's
+main path: a server over a full-width cnn_linear/densenet18 checkpoint (random
 weights from a seed) answering /predict requests, and DTW scoring of the
 served windows' breaths through the kernel.  Every phase prints one JSON
 line; any failure exits nonzero.  The last two lines are the card's
@@ -17,12 +19,14 @@ no result.
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+from collections import Counter
 
 import numpy as np
 
@@ -36,19 +40,27 @@ PROB_ATOL = 1e-4  # card vs CPU, f32 without TF32: summation order only
 # published H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-DTW_OPS_PER_CELL = 5  # subtract, abs, two mins, add
+SM_FP32_LANES = 128  # FP32 instructions a Hopper SM issues per clock
+# the earlier yardstick: 5 "ops" per cell against 67 TFLOP/s, a peak that
+# counts an FMA as two operations (a DTW cell has no FMA), so about 2x
+# too tight; kept beside the bound restated from the SASS
+DTW_OPS_PER_CELL_FLOPS = 5
 
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def nvidia_smi_line():
+def nvidia_smi(query, units=True):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", "--query-gpu=" + query,
+         "--format=csv,noheader" + ("" if units else ",nounits")],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_line():
+    return nvidia_smi("name,power.limit")
 
 
 def cuda_ms(fn, warmup=2, reps=10):
@@ -98,17 +110,6 @@ def device_breakdown(fn, reps=5, top=8):
     }
 
 
-def make_pairs(rng, bsz, n, lo, hi):
-    """(B, n) zero-padded pairs with lengths drawn in [lo, hi]."""
-    a = rng.normal(size=(bsz, n)).astype(np.float32)
-    b = rng.normal(size=(bsz, n)).astype(np.float32)
-    la = rng.integers(lo, hi + 1, size=bsz).astype(np.int32)
-    lb = rng.integers(lo, hi + 1, size=bsz).astype(np.int32)
-    a[np.arange(n)[None, :] >= la[:, None]] = 0
-    b[np.arange(n)[None, :] >= lb[:, None]] = 0
-    return a, b, la, lb
-
-
 def make_windows(rng, n):
     """(n, S, C, L) flow-like windows: a half-sine inspiration and an
     exponential expiration per breath, random period and amplitude, noise."""
@@ -132,7 +133,9 @@ def phase_env():
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    emit("env", nvidia_smi=smi, python=sys.version.split()[0],
+    emit("env", nvidia_smi=smi, sm_clock_max_mhz=sm_clock_hz() / 1e6,
+         sms=torch.cuda.get_device_properties(0).multi_processor_count,
+         python=sys.version.split()[0],
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(),
@@ -141,51 +144,217 @@ def phase_env():
     return smi
 
 
+def sm_clock_hz():
+    return float(nvidia_smi("clocks.max.sm", units=False)) * 1e6
+
+
+def kernel_key(symbol):
+    """``warp<R>`` or ``strip`` for a dtw kernel's mangled name, else None."""
+    rows = re.search(r"dtw_warp_kernelILi(\d+)E", symbol)
+    if rows:
+        return "warp" + rows.group(1)
+    return "strip" if "dtw_strip_kernel" in symbol else None
+
+
+def ptxas_by_kernel(log):
+    """Registers, spills and static shared memory of each kernel instance,
+    from nvcc's ``-Xptxas -v`` output."""
+    out = {}
+    name = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = kernel_key(entry.group(1))
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            out.setdefault(name, {}).update(
+                spill_stores=int(spill.group(1)),
+                spill_loads=int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(name, {}).update(
+                registers=int(used.group(1)),
+                smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def first_loop(instrs):
+    """The body of the first backward branch in [(address, opcode,
+    instruction)]: a kernel's inner loop."""
+    for addr, op, text in instrs:
+        target = re.search(r"BRA (0x[0-9a-f]+)", text)
+        if op == "BRA" and target and int(target.group(1), 16) < addr:
+            start = int(target.group(1), 16)
+            return [i for i in instrs if start <= i[0] <= addr]
+    return []
+
+
+def sass_fp32_per_cell():
+    """FP32 instructions per DTW cell in each kernel of the built library,
+    read from its SASS (``cuobjdump -sass``): FADD + FMUL + FFMA + FMNMX
+    over FMNMX / 2, since a cell takes exactly two mins.  Also the inner
+    loop's instructions per warp step: the body of the first backward
+    branch, over its steps (its FMNMX / 2R).  Keys: ``warp<R>`` (n <= 256,
+    R rows a lane) and ``strip`` (n > 256, R = 8)."""
+    from deepards_tpu_torch.ops import build
+
+    sass = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "-sass",
+         str(build.library_path("dtw"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    code = {}  # kernel -> [(address, opcode, instruction)]
+    name = None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = kernel_key(fn.group(1))
+            if name:
+                code[name] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+((?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9]*)[^;]*);", line)
+        if ins and name:
+            code[name].append((int(ins.group(1), 16), ins.group(3),
+                               ins.group(2)))
+    out = {}
+    for name, instrs in code.items():
+        count = Counter(op for _, op, _ in instrs)
+        fp32 = {k: count[k] for k in ("FADD", "FMUL", "FFMA", "FMNMX")
+                if count[k]}
+        rows = 8 if name == "strip" else int(name[4:])
+        loop = first_loop(instrs)
+        loop_steps = sum(op == "FMNMX" for _, op, _ in loop) / (2 * rows)
+        out[name] = {
+            "fp32_per_cell": sum(fp32.values()) / (count["FMNMX"] / 2),
+            "fp32": fp32, "instructions": len(instrs),
+            "loop_instructions_per_step": (len(loop) / loop_steps
+                                           if loop_steps else None),
+            "loop_shuffles_per_step": (
+                sum(op == "SHFL" for _, op, _ in loop) / loop_steps
+                if loop_steps else None)}
+    if set(out) != {"warp{}".format(r) for r in range(1, 9)} | {"strip"}:
+        raise AssertionError("dtw kernels missing from the SASS: {}".format(
+            sorted(out)))
+    return out
+
+
+def dtw_bound(la, lb, n, per_cell, sms, clock_hz):
+    """Least time for one dtw call: input read once and output written
+    once at the HBM rate, against the cells' FP32 instructions at the
+    SMs' issue rate (``per_cell`` from the SASS)."""
+    bsz = la.numel()
+    cells = float((la.double() * lb.double()).sum())
+    bytes_moved = 2 * bsz * n * 4 + 2 * bsz * 4 + bsz * 4
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = cells * per_cell / (sms * SM_FP32_LANES * clock_hz) * 1e3
+    return {"cells": cells, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "bound_ms_5_ops_at_67_tflops": max(
+                bytes_ms,
+                cells * DTW_OPS_PER_CELL_FLOPS / F32_OPS_PER_S * 1e3)}
+
+
+def served_chunk(rng):
+    """The dtw launch of the main path, built as per_breath_dtw_scores
+    builds it for 37 served windows: 740 breaths of 224 give 3 x 737 =
+    2,211 pairs, padded to (4096, 256) with pad rows of length 1."""
+    from deepards_tpu_torch.dtw.lib import _pad_pairs
+
+    breaths = list(make_windows(rng, 37).reshape(-1, C * L))
+    pairs_a = [breaths[i] for i in range(3, len(breaths)) for _ in range(3)]
+    pairs_b = [breaths[i - k] for i in range(3, len(breaths))
+               for k in (1, 2, 3)]
+    return _pad_pairs(pairs_a, pairs_b)
+
+
 def phase_build():
     from deepards_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     logs = build.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = {
-        name: [ln.strip() for ln in log.splitlines()
-               if "registers" in ln or "bytes stack" in ln]
-        for name, log in logs.items()
-    }
+    ptxas = {name: ptxas_by_kernel(log) for name, log in logs.items()}
     emit("build", seconds=seconds, built=sorted(logs), ptxas=ptxas,
          flags=" ".join(build.NVCC_FLAGS))
 
 
 def phase_kernel():
-    """dtw_cuda against dtw_reference on the card, then timings."""
+    """dtw_cuda against dtw_reference on the card at six shapes, exact,
+    then timings beside the bound."""
     import torch
 
-    from deepards_tpu_torch.ops.dtw import dtw_cuda, dtw_numpy, dtw_reference
+    from deepards_tpu_torch.ops.dtw import (
+        dtw_cuda,
+        dtw_numpy,
+        dtw_reference,
+        dtw_resident_warps,
+    )
+    from deepards_tpu_torch.ops.dtw_timing import device_ms, make_pairs
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
+    per_cell = sass_fp32_per_cell()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = sm_clock_hz()
 
     def on_card(*arrays):
         return [torch.from_numpy(x).to(dev) for x in arrays]
 
+    # (label, arrays): the main path's launch, per-breath, whole-window and
+    # small ragged shapes, a width above 11,622 (too wide for a block to
+    # hold 5 n floats; here two strip passes), and the throughput shape
+    cases = [("served chunk", served_chunk(rng))]
+    cases += [("B {} n {}".format(bsz, n), make_pairs(rng, bsz, n, lo, hi))
+              for bsz, n, lo, hi in ((8192, 256, 150, 224),
+                                     (256, 4480, 2240, 4480),
+                                     (300, 97, 1, 97),
+                                     (4, 12288, 9000, 12288),
+                                     (65536, 224, 224, 224))]
     shapes = []
     max_err = 0.0
-    for bsz, n, lo, hi in ((8192, 256, 150, 224), (256, 4480, 2240, 4480),
-                           (300, 97, 1, 97)):
-        a, b, la, lb = on_card(*make_pairs(rng, bsz, n, lo, hi))
+    for label, arrays in cases:
+        a, b, la, lb = on_card(*arrays)
+        bsz, n = a.shape
         got = dtw_cuda(a, b, la, lb)
+        plain_ms = None
+        if bsz == 65536:
+            plain_ms = cuda_ms(lambda: dtw_reference(a, b, la, lb),
+                               warmup=0, reps=10)
         want = dtw_reference(a, b, la, lb)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.isfinite(got).all() or err != 0.0:
             raise AssertionError(
-                "dtw_cuda != dtw_reference at B={} n={}: max abs {}".format(
-                    bsz, n, err))
+                "dtw_cuda != dtw_reference at {}: max abs {}".format(
+                    label, err))
+        for _ in range(5):  # repeatable: no race in the strip hand-off
+            if not torch.equal(dtw_cuda(a, b, la, lb), got):
+                raise AssertionError("dtw_cuda repeats differ at " + label)
         max_err = max(max_err, err)
-        shapes.append({"B": bsz, "n": n, "lengths": [lo, hi],
-                       "max_abs_err": err,
-                       "ms": cuda_ms(lambda: dtw_cuda(a, b, la, lb),
-                                     warmup=1, reps=5)})
+        ms = cuda_ms(lambda: dtw_cuda(a, b, la, lb), warmup=2, reps=20)
+        # the kernel alone: a call's events also hold the wrapper's host
+        # time (tens of microseconds) where the kernel is shorter than that
+        kernel_ms = device_ms(lambda: dtw_cuda(a, b, la, lb))
+        kernel = "warp{}".format(-(-n // 32)) if n <= 256 else "strip"
+        bound = dtw_bound(la, lb, n, per_cell[kernel]["fp32_per_cell"], sms,
+                          clock_hz)
+        shapes.append({"shape": label, "B": bsz, "n": n,
+                       "lengths": [int(la.min()), int(la.max())],
+                       "kernel": kernel, "max_abs_err": err, "ms": ms,
+                       "device_ms": kernel_ms, "plain_ms": plain_ms,
+                       "pairs_per_s": bsz / ms * 1e3,
+                       "share_of_bound": bound["bound_ms"] / kernel_ms,
+                       **bound})
+        print("dtw {}: {} ms per call, {} ms on the device, bound {} ms ({}),"
+              " share_of_bound {}".format(
+                  label, ms, kernel_ms, bound["bound_ms"], bound["bound_by"],
+                  bound["bound_ms"] / kernel_ms), flush=True)
 
     a, b, la, lb = make_pairs(rng, 8, 224, 150, 224)
     got = dtw_cuda(*on_card(a, b, la, lb)).cpu().numpy()
@@ -196,27 +365,15 @@ def phase_kernel():
         raise AssertionError("dtw_cuda vs f64 oracle rel {}".format(
             oracle_rel))
 
-    # throughput at 65,536 pairs of 224 x 224
-    bsz, n = 65536, 224
-    a, b, la, lb = on_card(*make_pairs(rng, bsz, n, n, n))
-    ms = cuda_ms(lambda: dtw_cuda(a, b, la, lb), warmup=2, reps=20)
-    plain_ms = cuda_ms(lambda: dtw_reference(a, b, la, lb),
-                       warmup=1, reps=10)
-    cells = float((la.double() * lb.double()).sum())
-    bytes_moved = 2 * bsz * n * 4 + 2 * bsz * 4 + bsz * 4
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = cells * DTW_OPS_PER_CELL / F32_OPS_PER_S * 1e3
-    timing = {
-        "B": bsz, "n": n, "ms": ms, "plain_ms": plain_ms,
-        "pairs_per_s": bsz / ms * 1e3,
-        "plain_pairs_per_s": bsz / plain_ms * 1e3,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-    }
-    emit("kernel", shapes=shapes, oracle_max_rel=oracle_rel, timing=timing,
+    resident = {"warp{}".format(r): dtw_resident_warps(32 * r)
+                for r in range(1, 9)}
+    resident.update({"strip n={}".format(w): dtw_resident_warps(w)
+                     for w in (4480, 12288)})
+    emit("kernel", shapes=shapes, oracle_max_rel=oracle_rel,
+         sass=per_cell, sms=sms, sm_clock_hz=clock_hz,
+         resident_warps_per_sm=resident,
          tolerance="exact vs dtw_reference; rtol 1e-4 vs f64 oracle")
-    return {"max_abs_err": max_err, **timing}
+    return {**shapes[-1], "max_abs_err": max_err}
 
 
 def phase_serve(workdir, device="cuda"):

@@ -26,15 +26,21 @@ _loaded = {}
 _lock = threading.Lock()
 
 
-def _nvcc():
+def cuda_tool(name):
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``, ...)."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
+    path = os.path.join(cuda_home, "bin", name)
     if os.path.exists(path):
         return path
-    path = shutil.which("nvcc")
+    path = shutil.which(name)
     if path is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+        raise RuntimeError("{} not found (set CUDA_HOME)".format(name))
     return path
+
+
+def library_path(name):
+    """Where kernel ``name``'s library is (or will be) built."""
+    return _target(name)[1]
 
 
 def _target(name):
@@ -53,7 +59,7 @@ def _start(name):
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_suffix(".so.tmp{}".format(os.getpid()))
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return tmp, out, proc
 
@@ -97,6 +103,6 @@ def load(name):
             job = _start(name)
             if job is not None:
                 _finish(name, job)
-            lib = ctypes.CDLL(str(_target(name)[1]))
+            lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

@@ -1,4 +1,4 @@
-"""Batched dynamic time warping: anti-diagonal wavefront.
+"""Batched dynamic time warping.
 
 Counterpart of ``deepards_tpu/ops/dtw.py``.  For each padded pair
 (a[p, :la], b[p, :lb]) the batched functions return the unconstrained DTW
@@ -10,7 +10,8 @@ D[i-1, j-1]).  Inputs are (B, n) float32 plus (B,) int32 lengths in
   ``_dtw_scan_impl`` step for step (2n-1 diagonals, the ``BIG`` sentinel,
   masking by (la, lb)).
 - ``dtw_cuda``: the hand-written CUDA kernel ``csrc/dtw.cu`` (CUDA tensors
-  only); equal to ``dtw_reference`` bit for bit.
+  only; one warp per strip of rows, any width n); equal to
+  ``dtw_reference`` bit for bit.
 - ``dtw_batch``: the dispatch.  CUDA tensors go to the kernel, CPU tensors
   to ``dtw_reference``.
 - ``dtw_numpy``: the float64 host oracle.
@@ -104,11 +105,13 @@ def _lib():
 
     lib = build.load("dtw")
     ptr = ctypes.c_void_p
-    lib.dtw_wavefront.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
+    lib.dtw_wavefront.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
                                   ctypes.c_int, ptr]
     lib.dtw_wavefront.restype = ctypes.c_int
-    lib.dtw_max_width.argtypes = []
-    lib.dtw_max_width.restype = ctypes.c_int
+    lib.dtw_scratch_floats.argtypes = [ctypes.c_int]
+    lib.dtw_scratch_floats.restype = ctypes.c_int
+    lib.dtw_resident_warps.argtypes = [ctypes.c_int]
+    lib.dtw_resident_warps.restype = ctypes.c_int
     lib.dtw_error_string.argtypes = [ctypes.c_int]
     lib.dtw_error_string.restype = ctypes.c_char_p
     return lib
@@ -132,21 +135,29 @@ def dtw_cuda(a, b, la, lb):
         raise ValueError("dtw_cuda: empty input {}".format(tuple(a.shape)))
     lib = _lib()
     with torch.cuda.device(a.device):
-        max_n = lib.dtw_max_width()
-        if n > max_n:
-            raise ValueError(
-                "dtw_cuda: n={} exceeds the widest pair one block holds "
-                "({})".format(n, max_n))
         out = torch.empty(bsz, dtype=torch.float32, device=a.device)
+        # the boundary row between strip passes of a pair wider than one
+        # block's warps cover; freed on return, the caching allocator hands
+        # it only to work queued after the kernel on this stream
+        per_pair = lib.dtw_scratch_floats(n)
+        edge = (torch.empty((bsz, per_pair), dtype=torch.float32,
+                            device=a.device) if per_pair else None)
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.dtw_wavefront(
             a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            out.data_ptr(), bsz, n, stream)
+            out.data_ptr(), None if edge is None else edge.data_ptr(), bsz,
+            n, stream)
     if err != 0:
         raise RuntimeError("dtw_cuda launch failed: {}".format(
             lib.dtw_error_string(err).decode()))
     launches += 1
     return out
+
+
+def dtw_resident_warps(n):
+    """Warps of the kernel ``dtw_cuda`` launches at width ``n`` that one SM
+    of the current card holds at once (the CUDA occupancy calculator)."""
+    return _lib().dtw_resident_warps(n)
 
 
 def dtw_batch(a, b, la=None, lb=None, device=None):

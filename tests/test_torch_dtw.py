@@ -41,8 +41,10 @@ def _reference(a, b, la, lb):
 
 
 # (seed, B, n, shortest length): the tests/test_dtw.py fixture shape, n = 1,
-# ragged n not a multiple of 32 or 64, and lengths down to 1
-CASES = [(3, 6, 48, 20), (0, 4, 1, 1), (5, 9, 97, 1), (7, 5, 33, 30)]
+# ragged n not a multiple of 32 or 64, lengths down to 1, and n = 257 (one
+# row past the CUDA kernel's first strip of 256)
+CASES = [(3, 6, 48, 20), (0, 4, 1, 1), (5, 9, 97, 1), (7, 5, 33, 30),
+         (1, 3, 257, 1)]
 
 
 @pytest.mark.parametrize("seed,bsz,n,lo", CASES)
