@@ -10,8 +10,12 @@ shapes, each timed beside a bound computed from the FP32 instructions per
 cell in the kernel's SASS and the card's SM clock), then drives the port's
 main path: a server over a full-width cnn_linear/densenet18 checkpoint (random
 weights from a seed) answering /predict requests, and DTW scoring of the
-served windows' breaths through the kernel.  Every phase prints one JSON
-line; any failure exits nonzero.  The last two lines are the card's
+served windows' breaths through the kernel.  Then the training path:
+benchmark config 1 trained through ``deepards_tpu_torch.cli.train`` on a
+seeded synthetic cohort (5 folds, 2 epochs), three steps held against
+the CPU in float32 and float64, a trained checkpoint served, and the bf16
+step timed on the device-cache path.  Every phase prints one JSON line; any failure exits
+nonzero.  The last two lines are the card's
 ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints
 no result.
@@ -36,6 +40,17 @@ S, C, L = 20, 1, 224
 BATCH = 16
 SEED = 0
 PROB_ATOL = 1e-4  # card vs CPU, f32 without TF32: summation order only
+
+# benchmark config 1
+# (deepards_tpu/config/experiment_files/unpadded_centered_nb20_cnn_linear.yml)
+# as training flags: the card's machine has no PyYAML to read the file.
+# Its `random_kfold: false` is the flag's default.
+CONFIG1_FLAGS = [
+    "--clip-val", "0.01", "--clip-grad",
+    "--dataset-type", "unpadded_centered_sequences",
+    "--oversample-minority", "--kfolds", "5", "--epochs", "10",
+    "--batch-size", "16", "--network", "cnn_linear", "--n-sub-batches", "20",
+]
 
 # published H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -82,11 +97,19 @@ def cuda_ms(fn, warmup=2, reps=10):
     return float(np.median(times))
 
 
+def kernel_events(events):
+    """The profiler's device events that are kernels: it also lists user
+    annotations (such as an optimizer's step) on the device's timeline."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_breakdown(fn, reps=5, top=8):
     """torch.profiler over ``reps`` calls of ``fn``: device (kernel) time
     per call, in total and by kernel name, and kernel launches per call."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -96,8 +119,7 @@ def device_breakdown(fn, reps=5, top=8):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = kernel_events(prof.key_averages())
     busy_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: -e.self_device_time_total)
     return {
@@ -108,6 +130,19 @@ def device_breakdown(fn, reps=5, top=8):
                  "launches_per_call": e.count / reps}
                 for e in kernels[:top]],
     }
+
+
+def post(url, body, ctype):
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def npz(**arrays):
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
 
 
 def make_windows(rng, n):
@@ -411,28 +446,16 @@ def phase_serve(workdir, device="cuda"):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = "http://127.0.0.1:{}/predict".format(server.server_address[1])
-
-    def post(body, ctype):
-        req = urllib.request.Request(
-            url, data=body, headers={"Content-Type": ctype})
-        with urllib.request.urlopen(req, timeout=120) as resp:
-            return json.loads(resp.read())
-
-    def npz(**arrays):
-        buf = io.BytesIO()
-        np.savez(buf, **arrays)
-        return buf.getvalue()
-
     try:
         responses = [
-            (1, None, post(json.dumps({"data": windows[:1].tolist()})
+            (1, None, post(url, json.dumps({"data": windows[:1].tolist()})
                            .encode(), "application/json")),
-            (16, None, post(npz(data=windows[:16]),
+            (16, None, post(url, npz(data=windows[:16]),
                             "application/octet-stream")),
-            (37, patients, post(npz(data=windows, patients=patients),
+            (37, patients, post(url, npz(data=windows, patients=patients),
                                 "application/octet-stream")),
         ]
-        repeat = post(npz(data=windows, patients=patients),
+        repeat = post(url, npz(data=windows, patients=patients),
                       "application/octet-stream")
     finally:
         server.shutdown()
@@ -513,6 +536,368 @@ def phase_dtw_served(windows, device="cuda"):
          max_abs_vs_cpu=err, seconds=seconds)
 
 
+TRAIN_EPOCHS = 2  # config 1 trains 10
+# card vs CPU after 3 steps from the same params and batches, TF32 off.
+# In float32 every tensor but the first conv's kernel is held to 1e-5.
+# That kernel's gradient is a sum that cancels (the norm after it makes it
+# scale-free): float32 misses it by a few 1e-3 against float64, so two
+# float32 summation orders put some elements on opposite sides of the
+# 0.01 clamp, and its float32 params after 3 steps are only reported.  It
+# is held instead by (a) its float32 gradient on the card against the
+# CPU's float64 one at the check's batches, within 2e-2: above the CPU's
+# own float32 reading (``first_conv_grad_err``) and below what a zero
+# gradient or another batch's gradient would give
+# (``first_conv_grad_controls``, which the script requires to exceed the
+# limit), and (b) the same 3 steps in float64, where every tensor, that
+# kernel included, must agree to 1e-5.
+TRAIN_STEP_ATOL = dict(loss=1e-4, params=1e-5, first_conv_grad=2e-2)
+FIRST_CONV = "breath_block.conv0.weight"
+TRAIN_SERVE_ATOL = 1e-5  # the same params and batch on one device
+MEASURE_WINDOWS = 4096  # the device-cache epoch timed: 256 steps of 16
+
+
+class CacheView:
+    """The part of a dataset the trainer's device-cache epoch reads: a
+    window cache and its current indices (all of them)."""
+
+    def __init__(self, cache):
+        self.cache = cache
+
+    def current_indices(self):
+        return np.arange(len(self.cache), dtype=np.int64)
+
+
+def train_config1(workdir, device):
+    """Config 1 through ``deepards_tpu_torch.cli.train.main`` on a seeded
+    synthetic cohort, with its checkpoints and results checked."""
+    from deepards_tpu_torch.cli.train import main as train_main
+    from deepards_tpu_torch.data.dataset import ARDSRawDataset
+    from deepards_tpu_torch.data.synthetic import generate_cohort
+    from deepards_tpu_torch.train import checkpoint as ckpt
+
+    cohort_dir = os.path.join(workdir, "cohort")
+    results_dir = os.path.join(workdir, "results")
+    models_dir = os.path.join(workdir, "models")
+    cohort = generate_cohort(cohort_dir, n_patients=10,
+                             n_breaths_per_patient=400, seed=SEED)
+    windows = len(ARDSRawDataset(cohort_dir, 1, cohort, S,
+                                 "unpadded_centered_sequences", kfold_num=0,
+                                 total_kfolds=5).cache)
+    t0 = time.perf_counter()
+    trainer = train_main(CONFIG1_FLAGS + [
+        "--epochs", str(TRAIN_EPOCHS), "--data-path", cohort_dir,
+        "--cohort-file", cohort, "--results-dir", results_dir,
+        "--save-model", "config1.pt", "--saved-models-dir", models_dir,
+        "--device", device])
+    seconds = time.perf_counter() - t0
+    res = trainer.results
+    folds = {}
+    for fold in range(5):
+        losses = res.get_meter("loss", fold).values
+        aucs = res.reporting.meters.get("test_auc_fold_{}".format(fold))
+        rows = [r for r in res.results if r["fold_num"] == fold]
+        path = os.path.join(models_dir, "config1-fold{}".format(fold))
+        if not losses or not np.isfinite(losses).all():
+            raise AssertionError("fold {}: losses {}".format(fold, losses))
+        if aucs is None or len(aucs) != TRAIN_EPOCHS or not rows:
+            raise AssertionError("fold {}: no AUC meter or patient rows"
+                                 .format(fold))
+        if ckpt.load_scaling(path) is None or "opt_state" not in \
+                ckpt.restore(path):
+            raise AssertionError("fold {}: checkpoint or its scaling "
+                                 "sidecar missing".format(fold))
+        folds[fold] = {"steps": len(losses), "last_loss": losses[-1],
+                       "auc": aucs.values, "patients": len(rows)}
+    names = os.listdir(results_dir)
+    for part in ("_patient_results.json", "_aggregate_results.json",
+                 "_maximal_results.json"):
+        if not any(n.endswith(part) for n in names):
+            raise AssertionError("results file *{} missing".format(part))
+    if not any(n.startswith("meters_") for n in names) or not any(
+            "_results_" in n for n in names):
+        raise AssertionError("meters or results record missing")
+    reduced = {"epochs": "10 -> {}".format(TRAIN_EPOCHS),
+               "cohort": "synthetic, 10 patients x 400 breaths ({} windows "
+                         "of (20, 1, 224)) in place of ~100 patients x "
+                         "24 h".format(windows)}
+    print("reduced: " + json.dumps(reduced), flush=True)
+    return trainer, models_dir, {
+        "seconds": seconds, "windows": windows, "folds": folds,
+        "results_files": sorted(names), "reduced": reduced,
+        "compute_dtype": trainer.conf.get("compute_dtype")}
+
+
+def train_card_vs_cpu(device):
+    """Three steps of full-width cnn_linear/densenet18 at batch 16,
+    dropout off, on the device and on the CPU from the same params and
+    batches, in float32 and in float64: losses and params must agree
+    (``TRAIN_STEP_ATOL``); and the first conv's float32 gradient against
+    float64."""
+    import torch
+
+    from deepards_tpu_torch.data.pipeline import transform_batch
+    from deepards_tpu_torch.models.layers import bn_row_mask
+    from deepards_tpu_torch.models.registry import (
+        get_base_network,
+        get_network_spec,
+    )
+    from deepards_tpu_torch.train.losses import bce_with_logits
+    from deepards_tpu_torch.train.steps import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    rng = np.random.default_rng(SEED + 2)
+    raw = make_windows(rng, 3 * BATCH)
+    mu = np.float32([raw.mean()])
+    std = np.float32([raw.std()])
+    targets = np.eye(2, dtype=np.float32)[rng.integers(0, 2, 3 * BATCH)]
+    mask = np.ones(BATCH, np.float32)
+    mask[-1] = 0.0  # one pad row
+    conf = {"base_network": "densenet18", "network": "cnn_linear"}
+    init = get_network_spec("cnn_linear").build(
+        conf, get_base_network(conf), S).reset_parameters(
+            torch.Generator().manual_seed(SEED)).state_dict()
+
+    def build(dev, dtype):
+        model = get_network_spec("cnn_linear").build(
+            conf, get_base_network(conf), S)
+        model.load_state_dict(init)
+        return model.to(device=dev, dtype=dtype)
+
+    def on(dev, dtype, *arrays):
+        return [torch.from_numpy(x).to(device=dev, dtype=dtype)
+                for x in arrays]
+
+    def batch(k, dev, dtype):
+        sl = slice(k * BATCH, (k + 1) * BATCH)
+        return on(dev, dtype, raw[sl], targets[sl], mask)
+
+    def run(dev, dtype):
+        """Losses, params and the first conv's clamped gradient of each
+        step (the optimizer clamps the grads in place)."""
+        model = build(dev, dtype)
+        state = TrainState(model, make_optimizer(
+            model.parameters(), "sgd", learning_rate=0.001,
+            weight_decay=0.0001, clip_grad=True, clip_val=0.01),
+            torch.Generator(device=dev))
+        mu_d, std_d = on(dev, dtype, mu, std)
+        step, _ = make_train_step(
+            bce_with_logits,
+            transform=lambda d: transform_batch(d, mu_d, std_d),
+            dropout_active=False)
+        losses, clamped = [], []
+        conv = dict(model.named_parameters())[FIRST_CONV]
+        for k in range(3):
+            losses.append(float(step(state, *batch(k, dev, dtype))))
+            clamped.append(conv.grad.double().cpu())
+        return losses, {k: v.double().cpu()
+                        for k, v in model.state_dict().items()}, clamped
+
+    def first_conv_grad(dev, dtype, k):
+        """The first conv's gradient (before the clamp) at the init."""
+        model = build(dev, dtype)
+        data, target, w = batch(k, dev, dtype)
+        mu_d, std_d = on(dev, dtype, mu, std)
+        with bn_row_mask(w.repeat_interleave(S)):
+            out = model(transform_batch(data, mu_d, std_d), True)
+        bce_with_logits(out, target, w).backward()
+        return dict(model.named_parameters())[FIRST_CONV].grad.double().cpu()
+
+    exact = [first_conv_grad("cpu", torch.float64, k) for k in range(3)]
+    grad_err = {
+        side: [float((first_conv_grad(dev, torch.float32, k)
+                      - exact[k]).abs().max()) for k in range(3)]
+        for side, dev in (("cpu", "cpu"), ("device", device))}
+    controls = {
+        "zero_gradient": [float(g.abs().max()) for g in exact],
+        "next_batch": [float((exact[k] - exact[(k + 1) % 3]).abs().max())
+                       for k in range(3)]}
+    if min(min(v) for v in controls.values()) <= \
+            TRAIN_STEP_ATOL["first_conv_grad"]:
+        raise AssertionError("the first conv's gradient limit would pass a "
+                             "zero or a wrong gradient: {}".format(controls))
+    fields = {"atol": TRAIN_STEP_ATOL, "first_conv_grad_err": grad_err,
+              "first_conv_grad_controls": controls}
+    failed = []
+    if max(grad_err["device"]) > TRAIN_STEP_ATOL["first_conv_grad"]:
+        failed.append("first conv gradient vs float64 {}".format(
+            grad_err["device"]))
+    for name, dtype in (("float32", torch.float32),
+                        ("float64", torch.float64)):
+        cpu_losses, cpu_params, cpu_clamped = run("cpu", dtype)
+        dev_losses, dev_params, dev_clamped = run(device, dtype)
+        loss_err = float(np.max(np.abs(np.subtract(dev_losses, cpu_losses))))
+        errs = {k: float((dev_params[k] - cpu_params[k]).abs().max())
+                for k in cpu_params}
+        held = dict(errs)
+        if dtype == torch.float32:
+            held.pop(FIRST_CONV)
+        worst = max(held, key=held.get)
+        # what a card that left the kernel unchanged would miss by
+        moved = float((cpu_params[FIRST_CONV]
+                       - init[FIRST_CONV].double()).abs().max())
+        if dtype == torch.float64 and moved <= TRAIN_STEP_ATOL["params"]:
+            raise AssertionError("3 steps move the first conv by {}: the "
+                                 "float64 check could not fail".format(moved))
+        fields[name] = {
+            "losses_device": dev_losses, "losses_cpu": cpu_losses,
+            "max_abs_loss": loss_err, "max_abs_params": held[worst],
+            "max_abs_params_at": worst,
+            "max_abs_first_conv": errs[FIRST_CONV],
+            "first_conv_moved_max_abs": moved,
+            "first_conv_clamped_grad_max_abs_by_step": [
+                float((d - c).abs().max())
+                for d, c in zip(dev_clamped, cpu_clamped)]}
+        if (loss_err > TRAIN_STEP_ATOL["loss"]
+                or held[worst] > TRAIN_STEP_ATOL["params"]):
+            failed.append("{}: loss {}, {} {}".format(
+                name, loss_err, worst, held[worst]))
+    if failed:
+        raise AssertionError("card vs CPU after 3 steps: " + "; ".join(failed))
+    return fields
+
+
+def train_to_serve(trainer, models_dir, device):
+    """The last fold's checkpoint served: one /predict over HTTP, and its
+    deterministic logits against the trainer's final model on the same
+    normalized batch."""
+    import torch
+
+    from deepards_tpu_torch.cli.serve import InferenceEngine, serve
+    from deepards_tpu_torch.train import checkpoint as ckpt
+
+    path = os.path.join(models_dir, "config1-fold4")
+    model = trainer.final_state.model
+    engine = InferenceEngine(path, n_sub_batches=S, batch_size=BATCH,
+                             scaling=ckpt.load_scaling(path),
+                             bn_scope=model.bn_scope, device=device)
+    engine.warm()
+    windows = make_windows(np.random.default_rng(SEED + 4), BATCH)
+    server = serve(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        resp = post("http://127.0.0.1:{}/predict".format(
+            server.server_address[1]), npz(data=windows),
+            "application/octet-stream")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    probs = np.stack([resp["prob_other"], resp["prob_ards"]], axis=1)
+    if probs.shape != (BATCH, 2) or not np.isfinite(probs).all():
+        raise AssertionError("bad served probabilities")
+    x = torch.from_numpy(windows).to(engine.device)
+    x = (x - engine._mu) / engine._std
+    with torch.no_grad():
+        got = engine.model(x, True)
+        want = model(x, True)
+    err = float((got - want).abs().max())
+    if err > TRAIN_SERVE_ATOL:
+        raise AssertionError("served logits differ from the trainer's "
+                             "model by {}".format(err))
+    return {"checkpoint": os.path.basename(path), "max_abs_logit": err,
+            "atol": TRAIN_SERVE_ATOL, "bn_scope": model.bn_scope}
+
+
+def train_numbers(workdir, device):
+    """Step times, profile, memory and epoch rate of config 1's step (full
+    width, batch 16, bf16, dropout on) on the device-cache path, over a
+    cache of random windows built directly."""
+    import torch
+
+    from deepards_tpu_torch.cli.train import build_parser
+    from deepards_tpu_torch.config.config import Configuration
+    from deepards_tpu_torch.data.pipeline import transform_batch
+    from deepards_tpu_torch.data.windowing import WindowCache
+    from deepards_tpu_torch.train.loop import Trainer
+    from deepards_tpu_torch.train.steps import make_train_step
+
+    conf = Configuration(build_parser().parse_args(CONFIG1_FLAGS + [
+        "--device", device,
+        "--results-dir", os.path.join(workdir, "measure")]))
+    trainer = Trainer(conf, verbose=False)
+    trainer.n_sub_batches = S
+    rng = np.random.default_rng(SEED + 3)
+    n = MEASURE_WINDOWS
+    ds = CacheView(WindowCache(
+        data=rng.normal(size=(n, S, C, L)).astype(np.float32),
+        target=np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)],
+        hours=np.zeros((n, S), np.float32),
+        patient_idx=np.zeros(n, np.int32), patients=["synthetic"]))
+    state = trainer.new_state(0)
+    zero = torch.zeros(1, device=trainer.device)
+    one = torch.ones(1, device=trainer.device)
+    train_step, eval_step = make_train_step(
+        trainer.loss_fn, transform=lambda d: transform_batch(d, zero, one),
+        compute_dtype=trainer.compute_dtype)
+    dev = trainer._get_device_cache(ds)
+    ids = torch.arange(BATCH, device=trainer.device)
+    data = dev["data"].index_select(0, ids)
+    target = dev["target"].index_select(0, ids)
+    mask = torch.ones(BATCH, device=trainer.device)
+
+    def step():
+        train_step(state, data, target, mask)
+
+    def evaluate():
+        eval_step(state, data, target, mask)
+
+    train_ms = cuda_ms(step, warmup=3, reps=20)
+    eval_ms = cuda_ms(evaluate, warmup=3, reps=20)
+    train_profile = device_breakdown(step)
+    eval_profile = device_breakdown(evaluate)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.run_train_epoch(state, train_step, ds, 0, 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = trainer.results.get_meter("loss", 0).values
+    if len(losses) != n // BATCH or not np.isfinite(losses).all():
+        raise AssertionError("device-cache epoch: {} losses".format(
+            len(losses)))
+    return {
+        "compute_dtype": conf.get("compute_dtype"),
+        "train_step_ms": train_ms, "eval_step_ms": eval_ms,
+        "device_ms_per_step": train_profile["device_ms_per_call"],
+        "launches_per_step": train_profile["kernel_launches_per_call"],
+        "device_idle_share": 1.0 - train_profile["device_ms_per_call"]
+        / train_ms,
+        "train_profile_top": train_profile["top"],
+        "eval_device_ms_per_step": eval_profile["device_ms_per_call"],
+        "eval_launches_per_step": eval_profile["kernel_launches_per_call"],
+        "eval_device_idle_share": 1.0 - eval_profile["device_ms_per_call"]
+        / eval_ms,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "epoch_windows": n, "epoch_seconds": seconds,
+        "windows_per_s": n / seconds,
+        "epoch_ms_per_step": seconds * 1e3 / (n // BATCH),
+    }
+
+
+def phase_train(workdir, smi, device="cuda"):
+    """Config 1 trained on the device through the CLI, the card held
+    against the CPU, a trained checkpoint served, and the step numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    trainer, models_dir, run = train_config1(workdir, device)
+    fields = {"card": smi, "config1": run,
+              "card_vs_cpu": train_card_vs_cpu(device),
+              "train_to_serve": train_to_serve(trainer, models_dir, device),
+              "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+              "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    if device == "cuda":
+        fields["numbers"] = train_numbers(workdir, device)
+    fields["train_phase_seconds"] = time.perf_counter() - t0
+    emit("train", **fields)
+
+
 def main():
     import torch
 
@@ -536,6 +921,13 @@ def main():
     launches = dtw_ops.launches
     if launches == 0:
         raise AssertionError("the main path never launched the dtw kernel")
+
+    # the training path runs no hand-written kernel: counts from 0 just
+    # before it, read just after
+    dtw_ops.launches = 0
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        phase_train(work, smi)
+    emit("train_path_kernel_launches", dtw=dtw_ops.launches)
 
     print(json.dumps({"kernels": [{
         "name": "dtw",

@@ -15,8 +15,9 @@ per-sequence normalization statistics (bn_scope='sequence') so the zero
 pad rows cannot change real windows.  Dropout stays active at inference,
 as in the JAX package, with its generator reseeded to the same seed at
 every forward, so the same request always gets the same answer.  Input
-scaling factors come from the checkpoint's .scaling.json sidecar unless
---allow-unscaled explicitly opts out.
+scaling factors come from --scaling-pickle (a saved ``.npz`` dataset: its
+first fold's factors) or else from the checkpoint's .scaling.json
+sidecar, unless --allow-unscaled explicitly opts out.
 
 Run: ``python -m deepards_tpu_torch.cli.serve model.pt [--device cuda]``
 (``model.pt`` from ``train.checkpoint.save``, or an .npz of the JAX
@@ -199,6 +200,19 @@ def serve(engine, host="127.0.0.1", port=8476):
     return ThreadingHTTPServer((host, port), make_handler(engine))
 
 
+def load_serving_scaling(checkpoint, scaling_pickle=None):
+    """(mu, std) for serving: the first fold's factors of a saved dataset
+    when one is given, else the checkpoint's sidecar (None if neither)."""
+    if scaling_pickle:
+        from deepards_tpu_torch.data.dataset import ARDSRawDataset
+
+        factors = ARDSRawDataset.from_pickle(scaling_pickle).scaling_factors
+        if factors:
+            mu, std = next(iter(factors.values()))
+            return np.asarray(mu), np.asarray(std)
+    return ckpt.load_scaling(checkpoint)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("checkpoint")
@@ -208,6 +222,9 @@ def main(argv=None):
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8476)
+    parser.add_argument("--scaling-pickle",
+                        help="saved .npz dataset whose train scaling "
+                        "factors normalize incoming windows")
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on (default: cuda)")
     parser.add_argument("--bn-scope", default="sequence",
@@ -222,12 +239,12 @@ def main(argv=None):
                         "will be WRONG; for debugging only)")
     args = parser.parse_args(argv)
 
-    scaling = ckpt.load_scaling(args.checkpoint)
+    scaling = load_serving_scaling(args.checkpoint, args.scaling_pickle)
     if scaling is None:
-        msg = ("no scaling factors: use a checkpoint with a .scaling.json "
-               "sidecar; a checkpoint trained through the normalization "
-               "pipeline will serve mis-scaled (wrong) predictions "
-               "without them")
+        msg = ("no scaling factors: pass --scaling-pickle or use a "
+               "checkpoint with a .scaling.json sidecar; a checkpoint "
+               "trained through the normalization pipeline will serve "
+               "mis-scaled (wrong) predictions without them")
         if not args.allow_unscaled:
             parser.error(msg)
         print("WARNING: {} (continuing: --allow-unscaled)".format(msg))
@@ -243,6 +260,7 @@ def main(argv=None):
     print("serving {} on http://{}:{} ({})".format(
         args.network, args.host, args.port, engine.device))
     server.serve_forever()
+    return engine
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ Counterpart of ``deepards_tpu/models/layers.py``.  Conventions:
 - backbones take and return (N, C, L), PyTorch's layout for ``conv1d``;
 - ``BatchStatNorm`` always normalizes by the current batch's statistics
   (there are no running averages and no train/eval switch), computed in
-  float32 with the biased variance;
+  float32 (float64 for a float64 input) with the biased variance;
 - the ``bn_row_mask`` scope carries a row-validity mask into every
   ``BatchStatNorm`` whose row count matches it, so pad rows drop out of the
   statistics and a padded batch normalizes its real rows exactly as a
@@ -82,12 +82,14 @@ class BatchStatNorm(nn.Module):
     def forward(self, x, groups=1):
         n, c, length = x.shape
         rows = n // groups
-        xf = x.float().reshape(groups, rows, c, length)
+        # float32 at least: a float64 model (a reference) stays float64
+        stat_dtype = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(stat_dtype).reshape(groups, rows, c, length)
         axes = (1, 3)
         row_mask = current_bn_row_mask(rows)
         if row_mask is not None:
             # mask-weighted statistics: pad rows contribute nothing
-            m = row_mask.to(device=x.device, dtype=torch.float32)
+            m = row_mask.to(device=x.device, dtype=stat_dtype)
             m = m.reshape(1, rows, 1, 1)
             count = torch.clamp(m.sum(), min=1.0) * float(length)
             mean = (xf * m).sum(dim=axes, keepdim=True) / count

@@ -34,8 +34,17 @@ def get_base_network(conf):
 
 @dataclass
 class NetworkSpec:
+    """How the trainer treats a network (the JAX package's fields)."""
+
     name: str
     build: Callable  # (conf, base_network, n_sub_batches) -> module
+    target_mode: str = "per_sample"  # per_sample|per_breath|regression|autoencoder
+    kind: str = "classifier"  # classifier|regressor|autoencoder|siamese|detector
+    expand_obs_idx: bool = False  # per-breath heads repeat an index S times
+    # the JAX head takes a metadata input; the port's heads do not yet
+    uses_metadata: bool = False
+    eval_dropout_off: bool = False  # eval runs with dropout off
+    trainer: str = "standard"  # standard|protopnet|siamese
 
 
 def _bn_scope(conf):
@@ -50,6 +59,7 @@ NETWORK_MAP = {
         lambda conf, bb, s: heads.CNNLinearNetwork(
             breath_block=bb, n_sub_batches=s, bn_scope=_bn_scope(conf),
         ),
+        uses_metadata=True,
     ),
 }
 

@@ -14,7 +14,8 @@ nested dicts of arrays, or flat with "a/b/c" keys as
 
 Layouts: conv kernels go from (K, Cin, Cout) to (Cout, Cin, K), Dense
 kernels (in, out) are transposed to (out, in), norm scale/bias become
-weight/bias.
+weight/bias.  ``load_sgd_momentum`` maps the momentum of an optax SGD
+state the same way, into a torch SGD's state.
 """
 from collections.abc import Mapping
 
@@ -80,3 +81,36 @@ def transplant(params):
             value = np.transpose(value, tuple(range(value.ndim))[::-1])
         state[_port_key(path)] = torch.tensor(np.ascontiguousarray(value))
     return state
+
+
+def _find_trace(opt_state):
+    """The momentum ``trace`` tree inside an optax state: the first node
+    (depth first through tuples) with a mapping ``trace`` field, as
+    ``optax.trace``'s ``TraceState`` has."""
+    trace = getattr(opt_state, "trace", None)
+    if isinstance(trace, Mapping):
+        return trace
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            found = _find_trace(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def load_sgd_momentum(optimizer, model, opt_state):
+    """Carry the momentum of the JAX package's optimizer (the ``trace``
+    of ``optax.sgd(momentum=0.9, nesterov=True)`` inside an optax chain
+    state) into a ``torch.optim.SGD`` over ``model``'s params, as its
+    ``momentum_buffer``s, so a step continues that run."""
+    trace = _find_trace(opt_state)
+    if trace is None:
+        raise ValueError("no optax trace (momentum) in the optimizer state")
+    buffers = transplant(trace)
+    params = dict(model.named_parameters())
+    if buffers.keys() != params.keys():
+        raise KeyError("momentum and params differ: {}".format(
+            sorted(set(buffers) ^ set(params))))
+    for name, p in params.items():
+        optimizer.state[p]["momentum_buffer"] = buffers[name].to(p.device)
+    return optimizer

@@ -36,14 +36,65 @@ def test_port_imports_no_jax_and_no_reference_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"deepards_tpu_torch.cli.serve", "deepards_tpu_torch.ops.dtw",
             "deepards_tpu_torch.dtw.lib",
-            "deepards_tpu_torch.transplant"} <= set(report["modules"])
+            "deepards_tpu_torch.transplant",
+            "deepards_tpu_torch.cli.train",
+            "deepards_tpu_torch.config.config",
+            "deepards_tpu_torch.data.breath",
+            "deepards_tpu_torch.data.correlation",
+            "deepards_tpu_torch.data.dataset",
+            "deepards_tpu_torch.data.pipeline",
+            "deepards_tpu_torch.data.reader",
+            "deepards_tpu_torch.data.sampling",
+            "deepards_tpu_torch.data.synthetic",
+            "deepards_tpu_torch.data.windowing",
+            "deepards_tpu_torch.eval.metrics",
+            "deepards_tpu_torch.train.checkpoint",
+            "deepards_tpu_torch.train.loader",
+            "deepards_tpu_torch.train.loop",
+            "deepards_tpu_torch.train.losses",
+            "deepards_tpu_torch.train.steps"} <= set(report["modules"])
     forbidden = [
         name for name in report["loaded"]
         if name == "deepards_tpu" or name.startswith("deepards_tpu.")
         or name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                  "pandas", "yaml")
+                                  "pandas", "yaml", "sklearn")
     ]
     assert forbidden == []
+
+
+_TRAIN_WITHOUT = r"""
+import sys
+for blocked in ("pandas", "sklearn", "yaml", "jax", "deepards_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from deepards_tpu_torch.cli.train import main
+from deepards_tpu_torch.data.synthetic import generate_cohort
+
+work = sys.argv[1]
+cohort = generate_cohort(work + "/cohort", n_patients=4,
+                         n_breaths_per_patient=80, seed=3)
+trainer = main(chip_smoke.CONFIG1_FLAGS + [
+    "--data-path", work + "/cohort", "--cohort-file", cohort,
+    "--n-sub-batches", "4", "--batch-size", "8", "--kfolds", "2",
+    "--only-fold", "0", "--epochs", "1", "--device", "cpu",
+    "--results-dir", work + "/results", "--save-model", "m.pt",
+    "--saved-models-dir", work + "/models"])
+assert trainer.results.get_meter("loss", 0).values
+assert len(trainer.results.get_meter("test_auc", 0).values) == 1
+"""
+
+
+def test_training_needs_no_pandas_sklearn_or_yaml(tmp_path):
+    """The path chip_smoke.py drives, a 1-fold 1-epoch CPU training from
+    config 1's flags, runs with pandas, scikit-learn and PyYAML blocked."""
+    out = subprocess.run(
+        [sys.executable, "-c", _TRAIN_WITHOUT, str(tmp_path)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert (tmp_path / "models" / "m-fold0.scaling.json").exists()
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
@@ -51,11 +102,14 @@ def test_entry_points_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from deepards_tpu_torch.cli.serve import InferenceEngine
+    from deepards_tpu_torch.cli.train import main as train_main
+    from deepards_tpu_torch.config.config import Configuration
     from deepards_tpu_torch.dtw.lib import (
         batched_dtw_pairs,
         per_breath_dtw_scores,
     )
     from deepards_tpu_torch.ops.dtw import dtw_batch
+    from deepards_tpu_torch.train.loop import Trainer
 
     a = np.zeros((2, 8), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -66,6 +120,10 @@ def test_entry_points_raise_without_cuda(tmp_path):
         batched_dtw_pairs(list(a), list(a))
     with pytest.raises(RuntimeError, match="CUDA"):
         per_breath_dtw_scores(list(np.zeros((5, 8), np.float32)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--data-path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(Configuration(overrides={"data_path": str(tmp_path)}))
 
 
 def test_dtw_cuda_refuses_cpu_tensors():
@@ -76,6 +134,24 @@ def test_dtw_cuda_refuses_cpu_tensors():
     n = torch.full((2,), 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         dtw_cuda(a, a, n, n)
+
+
+def test_chip_smoke_counts_kernels_not_annotations():
+    """An optimizer's step shows on the profiler's device timeline as a
+    user annotation; it is no kernel launch and no kernel time."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    import chip_smoke
+
+    kernel = SimpleNamespace(device_type=DeviceType.CUDA,
+                             is_user_annotation=False)
+    step = SimpleNamespace(device_type=DeviceType.CUDA,
+                           is_user_annotation=True)
+    host = SimpleNamespace(device_type=DeviceType.CPU,
+                           is_user_annotation=False)
+    assert chip_smoke.kernel_events([kernel, step, host]) == [kernel]
 
 
 def test_resolve_device():

@@ -68,6 +68,26 @@ def test_batch_stat_norm_masked_matches_jax_and_true_size():
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_batch_stat_norm_float64_keeps_float64(masked):
+    """A float64 norm (the reference of a float32 comparison) computes its
+    statistics in float64: it equals numpy's float64 norm to 1e-12."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(8, 3, 11)) * 3 + 1
+    mask = np.float64([1, 1, 1, 1, 1, 1, 0, 0]) if masked else np.ones(8)
+    norm = tl.BatchStatNorm(3).double()
+    with torch.no_grad(), tl.bn_row_mask(
+            torch.from_numpy(mask) if masked else None):
+        got = norm(torch.from_numpy(x))
+    m = mask.reshape(-1, 1, 1)
+    mean = (x * m).sum(axis=(0, 2), keepdims=True) / (m.sum() * 11)
+    var = (((x - mean) ** 2) * m).sum(axis=(0, 2), keepdims=True) / (
+        m.sum() * 11)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), (x - mean) / np.sqrt(var + 1e-5),
+                               atol=1e-12, rtol=0)
+
+
 def test_batch_stat_norm_all_ones_mask_is_noop():
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(size=(6, 3, 7)).astype(np.float32))
