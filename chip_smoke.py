@@ -12,11 +12,17 @@ main path: a server over a full-width cnn_linear/densenet18 checkpoint (random
 weights from a seed) answering /predict requests, and DTW scoring of the
 served windows' breaths through the kernel.  Then the training path:
 benchmark config 1 trained through ``deepards_tpu_torch.cli.train`` on a
-seeded synthetic cohort (5 folds, 2 epochs), three steps held against
-the CPU in float32 and float64, a trained checkpoint served, and the bf16
-step timed on the device-cache path.  Every phase prints one JSON line; any failure exits
-nonzero.  The last two lines are the card's
-``nvidia-smi`` name and power limit and
+seeded synthetic cohort (5 folds, 2 epochs, every step a CUDA-graph
+replay), three steps held against the CPU in float32 and float64, a
+trained checkpoint served, and the bf16 step and a 4096-window epoch
+timed eagerly and as graph replays.  ``graph_vs_eager`` holds 8 graphed
+device-cache steps of config 1 to the same steps run eagerly, and
+``config1_surface`` drives the rest of config 1's trainer through the CLI
+(augmentation, the Butterworth filter, fused host epochs, step
+checkpoints and a resume that must reproduce the run, ``cli.predict``
+against the trainer's eval, the metadata input, the FFT channels).
+Every phase prints one JSON line; any failure exits nonzero.  The last
+two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints
 no result.
 """
@@ -97,6 +103,12 @@ def cuda_ms(fn, warmup=2, reps=10):
     return float(np.median(times))
 
 
+# runtime calls by which the host puts work on the card's stream
+HOST_DISPATCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                   "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def kernel_events(events):
     """The profiler's device events that are kernels: it also lists user
     annotations (such as an optimizer's step) on the device's timeline."""
@@ -119,12 +131,15 @@ def device_breakdown(fn, reps=5, top=8):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = kernel_events(prof.key_averages())
+    events = prof.key_averages()
+    kernels = kernel_events(events)
     busy_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: -e.self_device_time_total)
     return {
         "device_ms_per_call": busy_us / reps / 1e3,
         "kernel_launches_per_call": sum(e.count for e in kernels) / reps,
+        "host_dispatches_per_call": sum(
+            e.count for e in events if e.key in HOST_DISPATCHES) / reps,
         "top": [{"name": e.key[:80],
                  "ms_per_call": e.self_device_time_total / reps / 1e3,
                  "launches_per_call": e.count / reps}
@@ -804,80 +819,341 @@ def train_to_serve(trainer, models_dir, device):
             "atol": TRAIN_SERVE_ATOL, "bn_scope": model.bn_scope}
 
 
-def train_numbers(workdir, device):
-    """Step times, profile, memory and epoch rate of config 1's step (full
-    width, batch 16, bf16, dropout on) on the device-cache path, over a
-    cache of random windows built directly."""
+def random_cache(rng, n):
+    """A dataset stand-in over ``n`` random windows of config 1's shape."""
+    from deepards_tpu_torch.data.windowing import WindowCache
+
+    return CacheView(WindowCache(
+        data=rng.normal(size=(n, S, C, L)).astype(np.float32),
+        target=np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)],
+        hours=np.zeros((n, S), np.float32),
+        patient_idx=np.zeros(n, np.int32), patients=["synthetic"]))
+
+
+def config1_fold(workdir, device, graphs, ds, dropout=True, *flags):
+    """A ``Trainer`` of config 1's flags (and ``flags``) with fold 0's
+    state built without a cohort, and a ``StepRunner`` of its steps over
+    unit scaling for batches of ``ds``: CUDA-graph replays with
+    ``graphs`` (the trainer's own choice on the card), else eager."""
     import torch
 
     from deepards_tpu_torch.cli.train import build_parser
     from deepards_tpu_torch.config.config import Configuration
     from deepards_tpu_torch.data.pipeline import transform_batch
-    from deepards_tpu_torch.data.windowing import WindowCache
     from deepards_tpu_torch.train.loop import Trainer
-    from deepards_tpu_torch.train.steps import make_train_step
+    from deepards_tpu_torch.train.steps import StepRunner, make_train_step
 
     conf = Configuration(build_parser().parse_args(CONFIG1_FLAGS + [
         "--device", device,
-        "--results-dir", os.path.join(workdir, "measure")]))
+        "--results-dir", os.path.join(workdir, "measure")] + list(flags)))
     trainer = Trainer(conf, verbose=False)
     trainer.n_sub_batches = S
-    rng = np.random.default_rng(SEED + 3)
-    n = MEASURE_WINDOWS
-    ds = CacheView(WindowCache(
-        data=rng.normal(size=(n, S, C, L)).astype(np.float32),
-        target=np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)],
-        hours=np.zeros((n, S), np.float32),
-        patient_idx=np.zeros(n, np.int32), patients=["synthetic"]))
     state = trainer.new_state(0)
     zero = torch.zeros(1, device=trainer.device)
     one = torch.ones(1, device=trainer.device)
     train_step, eval_step = make_train_step(
         trainer.loss_fn, transform=lambda d: transform_batch(d, zero, one),
-        compute_dtype=trainer.compute_dtype)
-    dev = trainer._get_device_cache(ds)
-    ids = torch.arange(BATCH, device=trainer.device)
-    data = dev["data"].index_select(0, ids)
-    target = dev["target"].index_select(0, ids)
-    mask = torch.ones(BATCH, device=trainer.device)
+        compute_dtype=trainer.compute_dtype, dropout_active=dropout)
+    runner = StepRunner(state, train_step, eval_step,
+                        (BATCH,) + ds.cache.data.shape[1:],
+                        graphed=graphs and trainer.device.type == "cuda")
+    return trainer, runner
 
-    def step():
-        train_step(state, data, target, mask)
 
-    def evaluate():
-        eval_step(state, data, target, mask)
+def train_numbers(workdir, device):
+    """Step times, profile, memory and epoch rate of config 1's step (full
+    width, batch 16, bf16, dropout on) on the device-cache path, over a
+    cache of random windows built directly: the steps run eagerly
+    (``eager``) and as CUDA-graph replays (``graphed``).  A step is the
+    runner's train call over a batch already in its buffers; the epoch
+    also gathers each batch on the card.  The build time and the peak
+    memory cover the fold's state and the runner (the graphed one's
+    warm-up, captures and pools)."""
+    import torch
 
-    train_ms = cuda_ms(step, warmup=3, reps=20)
-    eval_ms = cuda_ms(evaluate, warmup=3, reps=20)
-    train_profile = device_breakdown(step)
-    eval_profile = device_breakdown(evaluate)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    ds = random_cache(np.random.default_rng(SEED + 3), MEASURE_WINDOWS)
+    n = MEASURE_WINDOWS
+    out = {}
+    for name, graphs in (("eager", False), ("graphed", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        baseline = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        trainer, runner = config1_fold(workdir, device, graphs, ds)
+        torch.cuda.synchronize()
+        build_seconds = time.perf_counter() - t0
+        dev = trainer._get_device_cache(ds)
+        ids = torch.arange(BATCH, device=trainer.device)
+        for key, table in dev.items():
+            torch.index_select(table, 0, ids, out=runner.inputs[key])
+        runner.inputs["mask"].fill_(1.0)
+        train_ms = cuda_ms(runner.train, warmup=3, reps=20)
+        eval_ms = cuda_ms(runner.eval, warmup=3, reps=20)
+        # 20 steps queued back to back: the step-to-step time, which
+        # the device bounds once the host queues faster than it runs
+        train_b2b_ms = cuda_ms(lambda: [runner.train() for _ in range(20)],
+                               warmup=1, reps=3) / 20
+        eval_b2b_ms = cuda_ms(lambda: [runner.eval() for _ in range(20)],
+                              warmup=1, reps=3) / 20
+        train_profile = device_breakdown(runner.train)
+        eval_profile = device_breakdown(runner.eval)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_train_epoch(runner, ds, 0, 1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses = trainer.results.get_meter("loss", 0).values
+        if len(losses) != n // BATCH or not np.isfinite(losses).all():
+            raise AssertionError("{} device-cache epoch: {} losses".format(
+                name, len(losses)))
+        out[name] = {
+            "train_step_ms": train_ms, "eval_step_ms": eval_ms,
+            "train_back_to_back_ms": train_b2b_ms,
+            "eval_back_to_back_ms": eval_b2b_ms,
+            "device_ms_per_step": train_profile["device_ms_per_call"],
+            "launches_per_step": train_profile["kernel_launches_per_call"],
+            "host_dispatches_per_step":
+                train_profile["host_dispatches_per_call"],
+            "device_idle_share": 1.0 - train_profile["device_ms_per_call"]
+            / train_ms,
+            "train_profile_top": train_profile["top"],
+            "eval_device_ms_per_step": eval_profile["device_ms_per_call"],
+            "eval_launches_per_step":
+                eval_profile["kernel_launches_per_call"],
+            "eval_host_dispatches_per_step":
+                eval_profile["host_dispatches_per_call"],
+            "eval_device_idle_share": 1.0 - eval_profile["device_ms_per_call"]
+            / eval_ms,
+            "eval_profile_top": eval_profile["top"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "memory_allocated_before_bytes": baseline,
+            "runner_build_seconds": build_seconds,
+            "epoch_windows": n, "epoch_seconds": seconds,
+            "windows_per_s": n / seconds,
+            "epoch_ms_per_step": seconds * 1e3 / (n // BATCH),
+        }
+        print("numbers {}: {} ms a step, {} ms on the device, idle {}, "
+              "{} windows/s".format(
+                  name, train_ms, out[name]["device_ms_per_step"],
+                  out[name]["device_idle_share"], n / seconds), flush=True)
+        del runner, trainer
+    out["compute_dtype"] = "bfloat16"
+    return out
+
+
+GRAPH_STEPS = 8  # graph_vs_eager: device-cache steps from one fold state
+GRAPH_ATOL = 1e-6
+
+
+def phase_graph_vs_eager(workdir, device="cuda"):
+    """GRAPH_STEPS device-cache steps of config 1 from one fold state,
+    replayed as CUDA graphs and run eagerly, with cuDNN's deterministic
+    algorithms (its default backward sums in another order from run to
+    run), then an eval epoch over the same windows: float32 with dropout
+    off, losses, every param and the eval logits within GRAPH_ATOL;
+    bfloat16 with dropout on, losses and eval logits within GRAPH_ATOL and
+    the dropout generator in the same state after the steps."""
+    import torch
+
+    from deepards_tpu_torch.train.loop import _epoch_order
+
+    rng = np.random.default_rng(SEED + 6)
+    ds = random_cache(rng, GRAPH_STEPS * BATCH)
+    ds.cache.data[:] = make_windows(rng, GRAPH_STEPS * BATCH)
+    ids, masks = _epoch_order(rng.permutation(GRAPH_STEPS * BATCH), BATCH)
+    masks[-1, -3:] = 0.0  # pad rows in the last batch
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    fields = {"steps": GRAPH_STEPS, "atol": GRAPH_ATOL}
+    failed = []
+    try:
+        for dtype, dropout in (("float32", False), ("bfloat16", True)):
+            runs = {}
+            for graphs in (False, True):
+                trainer, runner = config1_fold(
+                    workdir, device, graphs, ds, dropout,
+                    "--compute-dtype", dtype)
+                state = runner.state
+                losses, _ = trainer._device_steps(runner, ds, ids, masks,
+                                                  True)
+                # then an eval epoch over the same windows (dropout as in
+                # training)
+                _, logits = trainer._device_steps(runner, ds, ids, masks,
+                                                  False)
+                runs[graphs] = (
+                    losses.cpu(),
+                    {k: v.detach().cpu()
+                     for k, v in state.model.state_dict().items()},
+                    state.generator.get_state(), state.step, logits.cpu())
+            e_loss, e_params, e_rng, e_step, e_out = runs[False]
+            g_loss, g_params, g_rng, g_step, g_out = runs[True]
+            loss_err = float((g_loss - e_loss).abs().max())
+            param_err = max(float((g_params[k] - e_params[k]).abs().max())
+                            for k in e_params)
+            logit_err = float((g_out - e_out).abs().max())
+            same_rng = bool(torch.equal(g_rng, e_rng))
+            fields[dtype] = {
+                "dropout": dropout, "losses_graphed": g_loss.tolist(),
+                "losses_eager": e_loss.tolist(), "max_abs_loss": loss_err,
+                "max_abs_params": param_err, "max_abs_eval_logits":
+                logit_err, "generator_state_equal": same_rng,
+                "steps": [e_step, g_step]}
+            if loss_err > GRAPH_ATOL or logit_err > GRAPH_ATOL or (
+                    not dropout and param_err > GRAPH_ATOL):
+                failed.append("{}: loss {}, params {}, eval logits {}"
+                              .format(dtype, loss_err, param_err,
+                                      logit_err))
+            if dropout and not same_rng:
+                failed.append("{}: generator states differ".format(dtype))
+            if e_step != g_step or not torch.isfinite(g_loss).all():
+                failed.append("{}: steps {} / {}".format(dtype, e_step,
+                                                          g_step))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit("graph_vs_eager", **fields)
+    if failed:
+        raise AssertionError("graphed vs eager: " + "; ".join(failed))
+
+
+# the rest of config 1's trainer through the CLI
+SURFACE_FLAGS = ["--transforms", "ie_ww", "--fused-steps", "4",
+                 "--butter-low", "0.5", "--checkpoint-every-n-steps", "2"]
+SURFACE_RESUME_FROM = "surface-epoch1-fold0-step4"
+PREDICT_ATOL = 1e-5  # predict vs the trainer's eval of one checkpoint
+
+
+def phase_config1_surface(workdir, device="cuda"):
+    """Config 1's flags with SURFACE_FLAGS through the CLI on a synthetic
+    cohort (fold 0, 2 epochs, cuDNN's deterministic algorithms); a resume
+    from a step checkpoint must reproduce the run's later losses exactly;
+    ``cli.predict`` on the final checkpoint must match the trainer's eval
+    of it (``--load-checkpoint --no-train``) within PREDICT_ATOL, with the
+    same votes; then one epoch each of the metadata dataset type and of
+    ``--with-fft``."""
+    import torch
+
+    from deepards_tpu_torch.cli.predict import main as predict_main
+    from deepards_tpu_torch.cli.train import main as train_main
+    from deepards_tpu_torch.data.synthetic import generate_cohort
+
+    def path(*parts):
+        return os.path.join(workdir, *parts)
+
+    cohort = generate_cohort(path("surface_cohort"), n_patients=10,
+                             n_breaths_per_patient=1200, seed=SEED + 5)
+    base = CONFIG1_FLAGS + [
+        "--data-path", path("surface_cohort"), "--cohort-file", cohort,
+        "--only-fold", "0", "--epochs", "2", "--device", device
+    ] + SURFACE_FLAGS
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    fields = {"flags": SURFACE_FLAGS, "seconds": {}}
+    try:
+        t0 = time.perf_counter()
+        full = train_main(base + [
+            "--results-dir", path("surface_results"), "--save-model",
+            "surface.pt", "--saved-models-dir", path("surface_models")])
+        fields["seconds"]["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = train_main(base + [
+            "--results-dir", path("resumed_results"), "--load-checkpoint",
+            path("surface_models", SURFACE_RESUME_FROM), "--save-model",
+            "resumed.pt", "--saved-models-dir", path("resumed_models")])
+        fields["seconds"]["resume"] = time.perf_counter() - t0
+        fields["resume"] = compare_resumed(full, resumed)
+        fields["predict"] = predict_vs_eval(
+            base, path, predict_main, train_main)
+        fields["metadata"] = surface_run(train_main, workdir, device, [
+            "--dataset-type",
+            "padded_breath_by_breath_with_flow_time_features"])
+        fields["with_fft"] = surface_run(train_main, workdir, device,
+                                         ["--with-fft"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit("config1_surface", **fields)
+
+
+def compare_resumed(full, resumed):
+    """The resumed run's losses against the run's, from the checkpoint on:
+    exactly equal, or AssertionError."""
+    meters = full.results.reporting.meters
+    again = resumed.results.reporting.meters
+    next_batch = int(SURFACE_RESUME_FROM.rsplit("step", 1)[1])
+    pairs = [(meters["loss_epoch_1_fold_0"].values[next_batch:],
+              again["loss_epoch_1_fold_0"].values)]
+    pairs += [(meters[k].values, again[k].values)
+              for k in ("loss_epoch_2_fold_0", "test_loss_fold_0")]
+    for want, got in pairs:
+        if len(want) != len(got) or not want:
+            raise AssertionError("resumed run: {} losses, the run {}".format(
+                len(got), len(want)))
+    diff = max(float(np.max(np.abs(np.subtract(got, want))))
+               for want, got in pairs)
+    steps = [len(meters["loss_epoch_1_fold_0"].values),
+             len(meters["loss_epoch_2_fold_0"].values)]
+    if diff != 0.0:
+        raise AssertionError("resumed losses differ from the run's by "
+                             "{}".format(diff))
+    return {"from": SURFACE_RESUME_FROM, "train_steps_by_epoch": steps,
+            "losses_compared": sum(len(w) for w, _ in pairs),
+            "max_abs_loss_diff": diff,
+            "final_step": [full.final_state.step, resumed.final_state.step]}
+
+
+def predict_vs_eval(base, path, predict_main, train_main):
+    """cli.predict on the final checkpoint against the trainer's eval of
+    the same checkpoint."""
+    checkpoint = path("surface_models", "surface-fold0")
     t0 = time.perf_counter()
-    trainer.run_train_epoch(state, train_step, ds, 0, 1)
-    torch.cuda.synchronize()
+    rows, votes = predict_main([
+        "--checkpoint", checkpoint, "-o", path("predictions.csv"),
+        "--votes-output", path("votes.json")] + base)
     seconds = time.perf_counter() - t0
+    evaluated = train_main(base + [
+        "--results-dir", path("eval_results"), "--load-checkpoint",
+        checkpoint, "--no-train", "--epochs", "1"])
+    logits = evaluated.last_eval["logits"].astype(np.float64)
+    want = np.exp(logits - logits.max(axis=1, keepdims=True))
+    want /= want.sum(axis=1, keepdims=True)
+    got = np.array([[r["prob_other"], r["prob_ards"]] for r in rows])
+    if [r["window_index"] for r in rows] != \
+            evaluated.last_eval["index"].tolist():
+        raise AssertionError("predict and the eval visit other windows")
+    err = float(np.abs(got - want).max())
+    records = {r["patient"]: r for r in evaluated.results.results}
+    votes_equal = len(records) == len(votes) and all(
+        v["pred_frac"] == records[v["patient"]]["pred_frac"]
+        and (v["pred_frac"] == 0.5
+             or v["prediction"] == records[v["patient"]]["prediction"])
+        for v in votes)
+    if err > PREDICT_ATOL or not votes_equal or not os.path.exists(
+            path("predictions.csv")):
+        raise AssertionError("predict vs the trainer's eval: max abs {}, "
+                             "votes equal {}".format(err, votes_equal))
+    return {"windows": len(rows), "patients": len(votes),
+            "max_abs_prob": err, "atol": PREDICT_ATOL,
+            "votes_equal": votes_equal, "predict_seconds": seconds}
+
+
+def surface_run(train_main, workdir, device, flags):
+    """One epoch of fold 0 of config 1 with ``flags`` on the small
+    cohort of the train phase."""
+    cohort_dir = os.path.join(workdir, "cohort")
+    cohort = os.path.join(cohort_dir, "cohort-description.csv")
+    t0 = time.perf_counter()
+    trainer = train_main(CONFIG1_FLAGS + [
+        "--data-path", cohort_dir, "--cohort-file", cohort, "--only-fold",
+        "0", "--epochs", "1", "--device", device, "--results-dir",
+        os.path.join(workdir, "run_" + flags[-1].strip("-"))] + flags)
     losses = trainer.results.get_meter("loss", 0).values
-    if len(losses) != n // BATCH or not np.isfinite(losses).all():
-        raise AssertionError("device-cache epoch: {} losses".format(
-            len(losses)))
-    return {
-        "compute_dtype": conf.get("compute_dtype"),
-        "train_step_ms": train_ms, "eval_step_ms": eval_ms,
-        "device_ms_per_step": train_profile["device_ms_per_call"],
-        "launches_per_step": train_profile["kernel_launches_per_call"],
-        "device_idle_share": 1.0 - train_profile["device_ms_per_call"]
-        / train_ms,
-        "train_profile_top": train_profile["top"],
-        "eval_device_ms_per_step": eval_profile["device_ms_per_call"],
-        "eval_launches_per_step": eval_profile["kernel_launches_per_call"],
-        "eval_device_idle_share": 1.0 - eval_profile["device_ms_per_call"]
-        / eval_ms,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "epoch_windows": n, "epoch_seconds": seconds,
-        "windows_per_s": n / seconds,
-        "epoch_ms_per_step": seconds * 1e3 / (n // BATCH),
-    }
+    if not losses or not np.isfinite(losses).all() or not \
+            trainer.results.get_meter("test_auc", 0).values:
+        raise AssertionError("{}: losses {}".format(flags, losses))
+    model = trainer.final_state.model
+    return {"flags": flags, "steps": len(losses), "last_loss": losses[-1],
+            "input_channels": model.breath_block.conv0.in_channels,
+            "head_inputs": model.head.in_features,
+            "seconds": time.perf_counter() - t0}
 
 
 def phase_train(workdir, smi, device="cuda"):
@@ -922,11 +1198,13 @@ def main():
     if launches == 0:
         raise AssertionError("the main path never launched the dtw kernel")
 
-    # the training path runs no hand-written kernel: counts from 0 just
-    # before it, read just after
+    # the training paths run no hand-written kernel: counts from 0 just
+    # before them, read just after
     dtw_ops.launches = 0
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         phase_train(work, smi)
+        phase_graph_vs_eager(work)
+        phase_config1_surface(work)
     emit("train_path_kernel_launches", dtw=dtw_ops.launches)
 
     print(json.dumps({"kernels": [{

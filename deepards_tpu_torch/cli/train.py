@@ -149,7 +149,7 @@ def build_parser():
     parser.add_argument("--fft-filtering-low", type=float)
     parser.add_argument("--fft-filtering-high", type=float)
     # the JAX package's accelerator options; the port takes dp_devices -1
-    # or 1 and steps one at a time
+    # or 1
     parser.add_argument("--dp-devices", type=int,
                         help="devices on the data mesh axis (-1 = all)")
     parser.add_argument("--compute-dtype",
@@ -165,8 +165,9 @@ def build_parser():
     flag("--parallel-folds",
          "train all kfolds simultaneously (not ported yet)")
     parser.add_argument("--fused-steps", type=int,
-                        help="the JAX package's steps per dispatch; "
-                        "accepted, the port steps one at a time")
+                        help="host epochs gather, augment and copy this "
+                        "many batches at a time (default 8); every step "
+                        "replays the fold's CUDA graph on the card")
     # multi-process / multi-host (usually set by cli.launch_distributed)
     parser.add_argument("--distributed-coordinator",
                         help="coordinator address host:port (multi-process "

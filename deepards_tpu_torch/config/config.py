@@ -73,9 +73,11 @@ DEFAULTS = {
     "dp_devices": -1,
     # seed of parameter init, shuffling, sampling and dropout
     "seed": 42,
-    # accepted for the JAX package's configs; the port steps one at a time
+    # host epochs gather, augment and copy this many batches at a time
     "fused_steps": 8,
+    # queue the epochs' result recording until the fold ends
     "defer_fetch": True,
+    # the JAX package's dropout PRNG; no effect in the port
     "rng_impl": "rbg",
 }
 

@@ -5,8 +5,10 @@ blocks with 1x1 bottlenecks, transitions that halve the channels and the
 length, batch-statistic normalization throughout, and dropout 0.2 after
 each dense layer.  Input and output layout is (N, C, L).
 
-Every call takes ``groups``: the rows split into that many equal groups,
-each with its own normalization statistics (see ``BatchStatNorm``).
+``in_channels`` is the cache's C: 1 (flow), or more with the FFT
+channels of ``--with-fft``/``--only-fft``.  Every call takes ``groups``:
+the rows split into that many equal groups, each with its own
+normalization statistics (see ``BatchStatNorm``).
 Dropout draws from the ``generator`` it is given.
 """
 import torch
@@ -66,12 +68,13 @@ class Transition(nn.Module):
 
 class DenseNet1D(nn.Module):
     def __init__(self, growth_rate=32, block_config=(2, 2, 2, 2),
-                 num_init_features=64, bn_size=4, drop_rate=0.2):
+                 num_init_features=64, bn_size=4, drop_rate=0.2,
+                 in_channels=1):
         super().__init__()
         self.block_config = tuple(block_config)
-        # one input channel: the flow waveform
         self.conv0 = nn.Conv1d(
-            1, num_init_features, 7, stride=2, padding=3, bias=False)
+            in_channels, num_init_features, 7, stride=2, padding=3,
+            bias=False)
         self.norm0 = BatchStatNorm(num_init_features)
         self.dense_layers = nn.ModuleList()
         self.transitions = nn.ModuleList()

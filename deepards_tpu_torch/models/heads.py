@@ -2,12 +2,14 @@
 
 Counterpart of ``deepards_tpu/models/heads.py``.  Every head folds
 (batch, windows) into one (B*S)-row batch and runs the backbone once.
-The JAX heads' optional metadata input comes with the datasets that
-produce it (a later slice); heads here take windows only.
+With ``metadata_features`` > 0 a head concatenates the window's (S,
+metadata_features) metadata, flattened, to its features before the
+Dense, as the JAX heads do; with 0 it ignores metadata.
 """
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -26,15 +28,20 @@ def _window_features(breath_block, x, bn_scope, deterministic, generator):
 
 
 class CNNLinearNetwork(nn.Module):
-    """Flatten all window features -> one Linear -> (B, 2) logits."""
+    """Flatten all window features (and the metadata) -> one Linear ->
+    (B, 2) logits."""
 
-    def __init__(self, breath_block, n_sub_batches, bn_scope="batch"):
+    def __init__(self, breath_block, n_sub_batches, bn_scope="batch",
+                 metadata_features=0):
         super().__init__()
         if bn_scope not in ("batch", "sequence"):
             raise ValueError("bn_scope must be 'batch' or 'sequence'")
         self.breath_block = breath_block
         self.bn_scope = bn_scope
-        self.head = nn.Linear(n_sub_batches * breath_block.n_out_filters, 2)
+        self.metadata_features = metadata_features
+        self.head = nn.Linear(
+            n_sub_batches * (breath_block.n_out_filters + metadata_features),
+            2)
 
     def reset_parameters(self, generator=None):
         """Backbone init, then the head: kernel normal(0, 1/sqrt(fan_in))
@@ -47,7 +54,16 @@ class CNNLinearNetwork(nn.Module):
             self.head.bias.zero_()
         return self
 
-    def forward(self, x, deterministic=False, generator=None):
+    def forward(self, x, deterministic=False, generator=None, metadata=None):
         feats = _window_features(
             self.breath_block, x, self.bn_scope, deterministic, generator)
-        return self.head(feats.reshape(feats.shape[0], -1))
+        flat = feats.reshape(feats.shape[0], -1)
+        if not self.metadata_features:
+            return self.head(flat)
+        # float32 metadata beside bfloat16 features: the Dense runs in the
+        # promoted type, as flax's Dense does for mixed inputs
+        meta = metadata.reshape(flat.shape[0], -1)
+        dtype = torch.promote_types(flat.dtype, meta.dtype)
+        flat = torch.cat([flat.to(dtype), meta.to(dtype)], dim=-1)
+        return F.linear(flat, self.head.weight.to(dtype),
+                        self.head.bias.to(dtype))

@@ -11,7 +11,8 @@ from deepards_tpu_torch.models import densenet1d, heads
 
 
 def _densenet_ctor(name):
-    return lambda conf: getattr(densenet1d, name)()
+    return lambda conf, in_channels: getattr(densenet1d, name)(
+        in_channels=in_channels)
 
 
 BASE_NETWORKS = {
@@ -21,7 +22,9 @@ BASE_NETWORKS = {
 }
 
 
-def get_base_network(conf):
+def get_base_network(conf, in_channels=1):
+    """The backbone ``conf`` names, over ``in_channels`` input channels
+    (the window cache's C)."""
     name = conf["base_network"]
     if name not in BASE_NETWORKS:
         raise ValueError(
@@ -29,7 +32,7 @@ def get_base_network(conf):
                 name, sorted(BASE_NETWORKS)
             )
         )
-    return BASE_NETWORKS[name](conf)
+    return BASE_NETWORKS[name](conf, in_channels)
 
 
 @dataclass
@@ -37,12 +40,11 @@ class NetworkSpec:
     """How the trainer treats a network (the JAX package's fields)."""
 
     name: str
-    build: Callable  # (conf, base_network, n_sub_batches) -> module
+    # (conf, base_network, n_sub_batches[, metadata_features]) -> module
+    build: Callable
     target_mode: str = "per_sample"  # per_sample|per_breath|regression|autoencoder
     kind: str = "classifier"  # classifier|regressor|autoencoder|siamese|detector
     expand_obs_idx: bool = False  # per-breath heads repeat an index S times
-    # the JAX head takes a metadata input; the port's heads do not yet
-    uses_metadata: bool = False
     eval_dropout_off: bool = False  # eval runs with dropout off
     trainer: str = "standard"  # standard|protopnet|siamese
 
@@ -56,10 +58,10 @@ def _bn_scope(conf):
 NETWORK_MAP = {
     "cnn_linear": NetworkSpec(
         "cnn_linear",
-        lambda conf, bb, s: heads.CNNLinearNetwork(
-            breath_block=bb, n_sub_batches=s, bn_scope=_bn_scope(conf),
+        lambda conf, bb, s, m=0: heads.CNNLinearNetwork(
+            breath_block=bb, n_sub_batches=s, metadata_features=m,
+            bn_scope=_bn_scope(conf),
         ),
-        uses_metadata=True,
     ),
 }
 
@@ -70,3 +72,14 @@ def get_network_spec(name):
             "unknown network: {} (have: {})".format(name, sorted(NETWORK_MAP))
         )
     return NETWORK_MAP[name]
+
+
+def metadata_features_for(conf):
+    """Metadata features per window the head concatenates: 9 flow-time
+    features for ``padded_breath_by_breath_with_flow_time_features``, else
+    none (the head then ignores a cache's metadata)
+    (reference: train_ards_detector.py:106-109)."""
+    if conf.get("dataset_type") == \
+            "padded_breath_by_breath_with_flow_time_features":
+        return 9
+    return 0

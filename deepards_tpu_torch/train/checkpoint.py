@@ -5,8 +5,9 @@ file of ``{"params", "opt_state", "rng", "step"}`` (all but the params
 optional), with the same sidecars as the JAX package: ``.scaling.json``
 (the training fold's (mu, std), so inference normalizes inputs without the
 dataset), ``.conf.json`` (the run's configuration) and ``.resume.json``
-(resume bookkeeping).  ``restore`` also reads an ``.npz`` of the JAX
-package's flat params (keys "a/b/c", as
+(resume bookkeeping: fold, epoch, next batch and, for a step checkpoint,
+the epoch's order; the host generator's state).  ``restore`` also reads
+an ``.npz`` of the JAX package's flat params (keys "a/b/c", as
 ``flax.traverse_util.flatten_dict(params, sep="/")`` gives), transplanted
 into the port's layout.
 """
@@ -42,8 +43,12 @@ def save(path, params, scaling=None, opt_state=None, rng=None, step=None,
                 "std": np.asarray(std, np.float64).ravel().tolist(),
             }, f)
     if resume_meta is not None:
+        # a step checkpoint's epoch order is an index array
+        meta = dict(resume_meta)
+        if meta.get("perm") is not None:
+            meta["perm"] = np.asarray(meta["perm"]).tolist()
         with open(path + ".resume.json", "w") as f:
-            json.dump(dict(resume_meta), f)
+            json.dump(meta, f)
     if conf is not None:
         with open(path + ".conf.json", "w") as f:
             json.dump({
@@ -90,4 +95,7 @@ def load_resume_meta(path):
     if not os.path.exists(meta_path):
         return None
     with open(meta_path) as f:
-        return json.load(f)
+        meta = json.load(f)
+    if meta.get("perm") is not None:
+        meta["perm"] = np.asarray(meta["perm"], np.int64)
+    return meta

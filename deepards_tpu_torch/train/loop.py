@@ -6,23 +6,32 @@ trains it over fixed-size batches whose pad rows carry mask 0, evaluates
 the fold's test patients, and feeds the per-window predictions to the
 patient votes and AUC of ``deepards_tpu_torch.eval.metrics``.
 
-The default epoch is the device-cache epoch: the dense window cache is
-uploaded to the card once, each step gathers its batch there by index,
-and the epoch's losses come back in one copy.  The host epoch
-(``EpochLoader`` + ``PrefetchLoader``) runs when ``debug``,
-``stop_on_loss`` or ``device_cache: false`` is set.  Steps run one at a
-time: ``fused_steps`` and ``defer_fetch`` are accepted and change no
-result.  Randomness: numpy ``default_rng(seed)`` streams for the
-permutations and the oversampling (those of the JAX package, so both
-draw the same batches in the same order), a ``torch.Generator`` per fold
-for the init, and one per fold on the device for dropout.
+Every step goes through the fold's ``StepRunner``: on the card one train
+step and one eval step captured as CUDA graphs and replayed (the JAX
+package's scanned epochs), on the CPU the same steps run eagerly.  The
+default epoch is the device-cache epoch: the dense window cache is
+uploaded to the card once, each step gathers its batch there by index
+into the runner's buffers, and the epoch's losses come back in one copy.
+The host epoch (``EpochLoader`` + ``PrefetchLoader``) runs when
+augmentation transforms, step checkpoints, a mid-epoch resume, ``debug``,
+``stop_on_loss`` or ``device_cache: false`` ask for it; with
+``fused_steps`` > 1 it gathers, augments and copies ``fused_steps``
+batches at a time, and with ``stop_on_loss`` or ``debug`` one at a time.
+``defer_fetch`` (default on) queues the epochs' result recording until
+the fold ends, so the card never waits on the host between epochs.
+Randomness: numpy ``default_rng(seed)`` streams for the permutations, the
+augmentation and the oversampling (those of the JAX package, drawn in its
+order, so both draw the same batches and warps), a ``torch.Generator``
+per fold for the init, and one per fold on the device for dropout.
 """
+import contextlib
 import os
 import time
 
 import numpy as np
 import torch
 
+from deepards_tpu_torch.data import augment
 from deepards_tpu_torch.data.dataset import ARDSRawDataset
 from deepards_tpu_torch.data.pipeline import BatchPipeline
 from deepards_tpu_torch.device import resolve_device
@@ -30,11 +39,13 @@ from deepards_tpu_torch.eval.metrics import DeepARDSResults
 from deepards_tpu_torch.models.registry import (
     get_base_network,
     get_network_spec,
+    metadata_features_for,
 )
 from deepards_tpu_torch.train import checkpoint
 from deepards_tpu_torch.train import losses as loss_lib
 from deepards_tpu_torch.train.loader import EpochLoader, PrefetchLoader
 from deepards_tpu_torch.train.steps import (
+    StepRunner,
     TrainState,
     make_optimizer,
     make_train_step,
@@ -53,9 +64,6 @@ _OTHER_TRAINERS = {
 
 # options of the JAX trainer not ported yet: setting one raises
 _UNPORTED_OPTIONS = (
-    "transforms", "butter_low", "butter_high", "fft_filtering_low",
-    "fft_filtering_high", "post_hoc_downsampling", "with_fft", "only_fft",
-    "checkpoint_every_n_steps", "load_base_network", "freeze_base_network",
     "plot_untiled_disease_evol", "plot_tiled_disease_evol",
     "plot_dtw_with_disease", "perform_dtw_preprocessing",
     "plot_pt_dtw_by_minute", "distributed_coordinator",
@@ -107,8 +115,21 @@ def _epoch_order(idx, batch_size):
     return ids.reshape(steps, batch_size), masks.reshape(steps, batch_size)
 
 
+def _chunks(iterable, size):
+    """Lists of ``size`` consecutive items (the last may be shorter)."""
+    chunk = []
+    for item in iterable:
+        chunk.append(item)
+        if len(chunk) == size:
+            yield chunk
+            chunk = []
+    if chunk:
+        yield chunk
+
+
 class Trainer:
-    """Config-driven experiment runner (the train_and_test surface)."""
+    """Config-driven experiment runner (the train_and_test surface).  On
+    a CUDA device its steps are CUDA-graph replays."""
 
     _DEVICE_CACHE_MAX_BYTES = 2 << 30  # larger caches take the host epoch
 
@@ -145,9 +166,38 @@ class Trainer:
             valpha=conf.get("valpha", float("inf")) or float("inf"),
             conf_beta=conf.get("conf_beta", 1.0) or 1.0,
         )
+        self.meta_features = metadata_features_for(conf.conf)
+        self.in_channels = 1  # the window cache's C, set with the datasets
         self._dev_caches = {}
+        self._deferred = None
 
     # -- datasets -------------------------------------------------------------
+
+    def _get_transforms(self):
+        """Augmentation composition
+        (reference: train_ards_detector.py:175-187)."""
+        names = self.conf.get("transforms")
+        if not names:
+            return None
+        return augment.build_transforms(
+            names,
+            self.conf.get("transform_probability", 0.2),
+            use_i=bool(self.conf.get("use_i")),
+        )
+
+    def _filters(self):
+        """The dataset options of the batch transforms and FFT channels."""
+        conf = self.conf
+        return dict(
+            butter_low=conf.get("butter_low"),
+            butter_high=conf.get("butter_high"),
+            add_fft=bool(conf.get("with_fft")),
+            only_fft=bool(conf.get("only_fft")),
+            fft_real_only=bool(conf.get("fft_real_only")),
+            post_hoc_downsampling=conf.get("post_hoc_downsampling"),
+            fft_filtering_low=conf.get("fft_filtering_low"),
+            fft_filtering_high=conf.get("fft_filtering_high"),
+        )
 
     def get_base_datasets(self):
         """(reference: train_ards_detector.py:189-315)"""
@@ -157,12 +207,14 @@ class Trainer:
         common = dict(
             oversample_minority=bool(conf.get("oversample_minority")),
             train_patient_fraction=conf.get("train_pt_frac", 1.0),
+            transforms=self._get_transforms(),
             undersample_factor=conf.get("undersample_factor", -1),
             undersample_std_factor=conf.get("undersample_std_factor", 0.2),
             oversample_all_factor=conf.get("oversample_all_factor", 1.0),
             random_kfold=bool(conf.get("random_kfold")),
             bootstrap=bool(conf.get("bootstrap")),
             seed=seed,
+            **self._filters(),
         )
         if conf.get("train_from_pickle"):
             train_dataset = ARDSRawDataset.from_pickle(
@@ -186,6 +238,7 @@ class Trainer:
                 **common,
             )
         self.n_sub_batches = train_dataset.n_sub_batches
+        self.in_channels = train_dataset.cache.data.shape[2]
 
         if conf.get("kfolds"):
             test_dataset = ARDSRawDataset.make_test_dataset_if_kfold(
@@ -210,13 +263,9 @@ class Trainer:
                 drop_e_lim=bool(conf.get("drop_e_lim")),
                 truncate_e_lim=conf.get("truncate_e_lim"),
                 seed=seed,
+                **self._filters(),
             )
         test_dataset.scaling_factors = train_dataset.scaling_factors
-        if self.spec.uses_metadata and train_dataset.cache.meta is not None:
-            raise NotImplementedError(
-                "dataset_type {} carries metadata, and the port's {} has no "
-                "metadata input yet".format(conf.dataset_type,
-                                            self.spec.name))
         return train_dataset, test_dataset
 
     # -- model ----------------------------------------------------------------
@@ -228,8 +277,9 @@ class Trainer:
 
     def build_model(self):
         conf = self.conf.conf
-        return self.spec.build(conf, get_base_network(conf),
-                               self.n_sub_batches)
+        return self.spec.build(
+            conf, get_base_network(conf, self.in_channels),
+            self.n_sub_batches, self.meta_features)
 
     def init_model(self, model, fold_num):
         """The fold's seeded initialization, drawn on the CPU (so the card
@@ -238,13 +288,18 @@ class Trainer:
             torch.Generator().manual_seed(self._fold_seed(fold_num, 0)))
 
     def new_state(self, fold_num):
-        """A fresh model, optimizer and dropout generator for a fold."""
+        """A fresh model, optimizer and dropout generator for a fold.  With
+        ``freeze_base_network`` the backbone takes no gradient and stays
+        out of the optimizer: no update, no weight decay
+        (reference: train_ards_detector.py:411-413)."""
         conf = self.conf
         model = self.build_model()
         self.init_model(model, fold_num)
         model.to(self.device)
+        if conf.get("freeze_base_network"):
+            model.breath_block.requires_grad_(False)
         optimizer = make_optimizer(
-            model.parameters(),
+            [p for p in model.parameters() if p.requires_grad],
             optimizer=conf.get("optimizer", "sgd"),
             learning_rate=conf.get("learning_rate", 0.001),
             weight_decay=conf.get("weight_decay", 0.0001),
@@ -267,38 +322,65 @@ class Trainer:
         state.step = saved.get("step", 0)
         return state
 
+    def load_base_network(self, state, path):
+        """Splice the backbone (``breath_block.*``) of a port checkpoint, or
+        of an ``.npz`` of the JAX package's flat params, into the fold's
+        model (reference: train_ards_detector.py:383-388)."""
+        params = checkpoint.restore(path)["params"]
+        backbone = {k: v for k, v in params.items()
+                    if k.startswith("breath_block.")}
+        if not backbone:
+            raise ValueError("{} holds no breath_block params".format(path))
+        state.model.load_state_dict(backbone, strict=False)
+        return state
+
     # -- main loop ------------------------------------------------------------
 
     def train_and_test(self):
-        """Every fold; with ``load_checkpoint``, each fold starts from that
-        state, and a checkpoint saved after an epoch (its ``.resume.json``
-        names the fold and the next epoch) resumes there."""
+        """Every fold.  With ``load_checkpoint`` each fold starts from that
+        state; a checkpoint saved after an epoch or after a step (its
+        ``.resume.json`` names the fold, the epoch, the next batch, the
+        epoch's order and the host generator's state) resumes there, and
+        the rest of the run equals the run that saved it."""
         conf = self.conf
         self.resume_meta = None
         if conf.get("load_checkpoint"):
             self.resume_meta = checkpoint.load_resume_meta(
                 conf.load_checkpoint)
-            if self.resume_meta and self.resume_meta.get("next_batch"):
-                raise NotImplementedError(
-                    "mid-epoch resume is not ported to deepards_tpu_torch "
-                    "yet: resume from an epoch checkpoint")
+        if self.resume_meta and "host_rng" in self.resume_meta:
+            self.host_rng.bit_generator.state = self.resume_meta["host_rng"]
         train_dataset, test_dataset = self.get_base_datasets()
         for fold_num in range(self.n_kfolds):
             if conf.get("only_fold") is not None and fold_num != conf.only_fold:
                 continue
-            if self.resume_meta and fold_num < self.resume_meta["fold"]:
-                continue  # fold completed before the checkpoint
             if conf.get("kfolds") or conf.get("bootstrap"):
                 if self.verbose:
                     print("--- Run Fold {} ---".format(fold_num + 1))
+                # before a fold is skipped too: its oversampling draws
+                # keep the later folds' windows those of the whole run
                 train_dataset.set_kfold_indexes_for_fold(fold_num)
                 test_dataset.set_kfold_indexes_for_fold(fold_num)
+            if self.resume_meta and fold_num < self.resume_meta["fold"]:
+                continue  # fold completed before the checkpoint
             # the fold's scaling goes into the checkpoint sidecars, so
             # serving normalizes without the dataset
             self._current_scaling = train_dataset.scaling_for_current_fold()
             self.run_fold(fold_num, train_dataset, test_dataset)
         self.perform_post_modeling_actions()
         return self.results
+
+    def make_runner(self, state, dataset, train_step, eval_step):
+        """The fold's ``StepRunner`` for batches of ``dataset``'s windows:
+        its graphs are captured here, after the fold's state is final."""
+        batch_size = self.conf.get("batch_size", 16)
+        cache = dataset.cache
+        meta_shape = None
+        if self.meta_features:
+            meta_shape = (batch_size,) + cache.meta.shape[1:]
+        return StepRunner(state, train_step, eval_step,
+                          (batch_size,) + cache.data.shape[1:],
+                          meta_shape=meta_shape,
+                          graphed=self.device.type == "cuda")
 
     def run_fold(self, fold_num, train_dataset, test_dataset):
         conf = self.conf
@@ -307,28 +389,35 @@ class Trainer:
         state = self.new_state(fold_num)
         if conf.get("load_checkpoint"):
             self.restore_state(state, conf.load_checkpoint)
+        if conf.get("load_base_network"):
+            self.load_base_network(state, conf.load_base_network)
         train_step, eval_step = make_train_step(
             self.loss_fn,
             transform=BatchPipeline(train_dataset, self.device),
             compute_dtype=self.compute_dtype,
             eval_dropout_active=not self.spec.eval_dropout_off,
         )
+        runner = self.make_runner(state, train_dataset, train_step,
+                                  eval_step)
         epochs = conf.get("epochs", 10)
         resume = self.resume_meta
         if not (resume and resume["fold"] == fold_num):
             resume = None
         start_epoch = resume["epoch"] if resume else 1
-        for epoch_num in range(start_epoch, epochs + 1):
-            if not conf.get("no_train"):
-                self.run_train_epoch(
-                    state, train_step, train_dataset, fold_num, epoch_num)
-            if conf.get("reshuffle_oversample_per_epoch"):
-                train_dataset.set_oversampling_indices()
-            if not conf.get("no_test_after_epochs") or epoch_num == epochs:
-                self.run_test_epoch(
-                    state, eval_step, test_dataset, fold_num, epoch_num)
-            if conf.get("save_model_per_epoch") and conf.get("save_model"):
-                self.save_checkpoint(state, fold_num, epoch_num)
+        with self.deferred_fetch():
+            for epoch_num in range(start_epoch, epochs + 1):
+                mid_epoch = (resume if resume and resume["epoch"] == epoch_num
+                             and resume.get("next_batch") else None)
+                if not conf.get("no_train"):
+                    self.run_train_epoch(runner, train_dataset, fold_num,
+                                         epoch_num, resume=mid_epoch)
+                if conf.get("reshuffle_oversample_per_epoch"):
+                    train_dataset.set_oversampling_indices()
+                if not conf.get("no_test_after_epochs") or epoch_num == epochs:
+                    self.run_test_epoch(runner, test_dataset, fold_num,
+                                        epoch_num)
+                if conf.get("save_model_per_epoch") and conf.get("save_model"):
+                    self.save_checkpoint(state, fold_num, epoch_num)
         if conf.get("save_model"):
             self.save_checkpoint(state, fold_num, None)
         if resume:
@@ -336,15 +425,47 @@ class Trainer:
         self.final_state = state
         return state
 
-    # -- device-cache epochs --------------------------------------------------
+    # -- deferred recording ---------------------------------------------------
 
-    def _device_cache_eligible(self, dataset):
+    @contextlib.contextmanager
+    def deferred_fetch(self):
+        """While armed, the epochs queue their result recording (the
+        losses' and logits' copy to the host, votes, AUC) with ``_defer``
+        instead of waiting on the card, and the queue runs when the fold
+        ends (or before a checkpoint).  The records are the same; only
+        the time the host reads them moves.  ``defer_fetch: false``
+        records each epoch as it ends."""
+        self._deferred = [] if self.conf.get("defer_fetch", True) else None
+        try:
+            yield
+            self._flush_deferred()
+        finally:
+            self._deferred = None
+
+    def _defer(self, fn, *args):
+        if self._deferred is None:
+            fn(*args)
+        else:
+            self._deferred.append(lambda: fn(*args))
+
+    def _flush_deferred(self):
+        while self._deferred:
+            self._deferred.pop(0)()
+
+    # -- train epochs ---------------------------------------------------------
+
+    def _device_cache_eligible(self, dataset, resume=None):
         """The default epoch: eligible when nothing needs the host inside
-        the epoch (no stop-on-loss breaker, no debug single batch) and the
+        the epoch (no augmentation, no step checkpoints or mid-epoch
+        resume, no stop-on-loss breaker, no debug single batch) and the
         cache fits, unless ``device_cache`` says otherwise."""
         conf = self.conf
         flag = conf.get("device_cache")
         if flag is False:
+            return False
+        if callable(getattr(dataset, "transforms", None)):
+            return False
+        if resume is not None or conf.get("checkpoint_every_n_steps"):
             return False
         if conf.get("stop_on_loss") or conf.get("debug"):
             return False
@@ -354,28 +475,45 @@ class Trainer:
         return True
 
     def _get_device_cache(self, dataset):
-        """The cache's data and targets on the device, uploaded once per
-        ``cache.token``: the k-fold train and test views share one."""
+        """The cache's data, targets and (for a head that reads it)
+        metadata on the device, uploaded once per ``cache.token``: the
+        k-fold train and test views share one."""
         key = dataset.cache.token
         if key not in self._dev_caches:
+            arrays = {"data": dataset.cache.data,
+                      "target": dataset.cache.target}
+            if self.meta_features:
+                arrays["meta"] = dataset.cache.meta
             self._dev_caches[key] = {
-                "data": torch.from_numpy(dataset.cache.data).to(self.device),
-                "target": torch.from_numpy(dataset.cache.target).to(
-                    self.device),
-            }
+                k: torch.from_numpy(v).to(self.device)
+                for k, v in arrays.items()}
         return self._dev_caches[key]
 
-    def _device_batches(self, dataset, ids, masks):
-        """(data, target, mask) per step, gathered on the device."""
+    def _device_steps(self, runner, dataset, ids, masks, train):
+        """One step per row of ``ids`` over the device cache, each batch
+        gathered into the runner's buffers on the device.  Returns the
+        (steps,) losses and, for eval, the (steps, B, 2) logits, on the
+        device."""
         dev = self._get_device_cache(dataset)
         ids = torch.from_numpy(ids).to(self.device)
         masks = torch.from_numpy(masks).to(self.device)
-        for step_ids, mask in zip(ids, masks):
-            yield (dev["data"].index_select(0, step_ids),
-                   dev["target"].index_select(0, step_ids), mask)
+        steps, batch_size = ids.shape
+        losses = torch.empty(steps, device=self.device)
+        outs = None if train else torch.empty(
+            steps, batch_size, 2, device=self.device)
+        inputs = runner.inputs
+        for i in range(steps):
+            for key, table in dev.items():
+                torch.index_select(table, 0, ids[i], out=inputs[key])
+            inputs["mask"].copy_(masks[i])
+            if train:
+                losses[i] = runner.train()
+            else:
+                losses[i], outs[i] = runner.eval()
+        return losses, outs
 
-    def _run_train_epoch_device_cache(self, state, train_step, dataset,
-                                      fold_num, epoch_num):
+    def _run_train_epoch_device_cache(self, runner, dataset, fold_num,
+                                      epoch_num):
         conf = self.conf
         idx = np.asarray(dataset.current_indices())
         perm = idx if conf.get("unshuffled") else self.host_rng.permutation(
@@ -384,95 +522,157 @@ class Trainer:
         if self.verbose:
             print("train instances: {} (device-cache epoch)".format(
                 len(ids)))
-        losses = [train_step(state, data, target, mask)
-                  for data, target, mask in self._device_batches(
-                      dataset, ids, masks)]
-        self._record_train_losses(
-            torch.stack(losses).cpu().numpy(), fold_num, epoch_num)
+        losses, _ = self._device_steps(runner, dataset, ids, masks, True)
+        self._defer(self._record_train_losses, losses, fold_num, epoch_num)
 
     def _record_train_losses(self, losses, fold_num, epoch_num):
-        for loss in losses:
+        for loss in losses.cpu().numpy():
             self.results.update_meter(
                 "loss_epoch_{}".format(epoch_num), fold_num, float(loss))
             self.results.update_loss(fold_num, float(loss))
 
-    # -- host epochs ----------------------------------------------------------
-
-    def _to_device(self, batch, batch_size):
-        """Pad a gathered batch to ``batch_size`` and copy it to the
-        device: (data, target, mask)."""
+    def device_batch(self, batch, batch_size):
+        """Pad a gathered batch to ``batch_size`` and copy what the steps
+        read to the device: {data, target, mask[, meta]}."""
         batch, mask = _pad_batch(batch, batch_size)
-        return (torch.from_numpy(batch["data"]).to(self.device),
-                torch.from_numpy(batch["target"]).to(self.device),
-                torch.from_numpy(mask).to(self.device))
+        out = {"data": batch["data"], "target": batch["target"],
+               "mask": mask}
+        if self.meta_features:
+            out["meta"] = batch["metadata"]
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in out.items()}
 
-    def run_train_epoch(self, state, train_step, dataset, fold_num,
-                        epoch_num):
+    def run_train_epoch(self, runner, dataset, fold_num, epoch_num,
+                        resume=None):
+        """The device-cache epoch where eligible, else a host epoch.  With
+        ``checkpoint_every_n_steps`` the epoch's order is drawn first and
+        saved with each step checkpoint; ``resume`` (a step checkpoint's
+        meta) replays that order from its next batch."""
         conf = self.conf
-        if self._device_cache_eligible(dataset):
+        ckpt_every = conf.get("checkpoint_every_n_steps") or 0
+        perm, start_batch = None, 0
+        if resume is not None:
+            perm, start_batch = resume["perm"], resume["next_batch"]
+        elif ckpt_every:
+            idx = np.asarray(dataset.current_indices())
+            perm = (idx if conf.get("unshuffled")
+                    else self.host_rng.permutation(idx))
+        if self._device_cache_eligible(dataset, resume):
             return self._run_train_epoch_device_cache(
-                state, train_step, dataset, fold_num, epoch_num)
+                runner, dataset, fold_num, epoch_num)
         batch_size = conf.get("batch_size", 16)
-        loader = EpochLoader(
-            dataset,
-            batch_size,
-            shuffle=not conf.get("unshuffled"),
-            rng=self.host_rng,
-        )
+        loader = EpochLoader(dataset, batch_size,
+                             shuffle=not conf.get("unshuffled"),
+                             rng=self.host_rng, indices=perm,
+                             start_batch=start_batch)
+        # augmentation draws from host_rng after the permutation, batch by
+        # batch, in the JAX package's order; the generator's state after
+        # each batch rides along for the step checkpoints
+        transforms = dataset.transforms if callable(
+            getattr(dataset, "transforms", None)) else None
+
+        def prepare(batches):
+            out = []
+            for batch in batches:
+                if transforms is not None:
+                    batch["data"] = augment.apply_to_batch(
+                        transforms, batch["data"], self.host_rng)
+                out.append(_pad_batch(batch, batch_size))
+            stacked = {k: np.stack([b[k] for b, _ in out])
+                       for k in ("data", "target")}
+            stacked["mask"] = np.stack([m for _, m in out])
+            if self.meta_features:
+                stacked["meta"] = np.stack([b["metadata"] for b, _ in out])
+            dev = {k: torch.from_numpy(v).to(self.device)
+                   for k, v in stacked.items()}
+            return dev, self.host_rng.bit_generator.state
+
+        single = conf.get("stop_on_loss") or conf.get("debug")
+        fused = 1 if single else max(conf.get("fused_steps") or 1, 1)
         if self.verbose:
-            print("train instances: {}".format(len(loader)))
-
-        def prepare(batch):
-            batch.pop("index")
-            return self._to_device(batch, batch_size)
-
-        def record(loss):
-            loss = float(loss)
-            self.results.update_meter(
-                "loss_epoch_{}".format(epoch_num), fold_num, loss)
-            self.results.update_loss(fold_num, loss)
-            if (conf.get("stop_on_loss")
-                    and loss > conf.get("stop_thresh", 1.5)
-                    and epoch_num > conf.get("stop_after_epoch", 1)):
-                print("stop on loss: loss={:.4f} exceeded stop_thresh".format(
-                    loss))
-                return True
-            return False
-
-        # the loss of step N is read after step N+1 is queued, so the
-        # device never waits on the host; the stop-on-loss breaker fires
-        # one step late, as in the JAX package
-        prev_loss = None
-        for data, target, mask in PrefetchLoader(loader, map_fn=prepare):
-            loss = train_step(state, data, target, mask)
-            if prev_loss is not None and record(prev_loss):
-                prev_loss = None
-                break
-            prev_loss = loss
+            print("train instances: {}{}".format(
+                len(loader), " (fused x{})".format(fused) if fused > 1
+                else ""))
+        losses = torch.empty(len(loader), device=self.device)
+        n = 0  # steps run in this call
+        last_ckpt = start_batch
+        for chunk, rng_state in PrefetchLoader(_chunks(loader, fused),
+                                               map_fn=prepare):
+            # the runner's buffers are written here, on the main thread
+            steps = chunk["data"].shape[0]
+            for j in range(steps):
+                for key, value in chunk.items():
+                    runner.inputs[key].copy_(value[j])
+                losses[n] = runner.train()
+                n += 1
+                # the loss of step N is read after step N+1 is queued, so
+                # the stop-on-loss breaker fires one step late, as in the
+                # JAX package
+                if single and n > 1 and self._record(
+                        losses[n - 2], fold_num, epoch_num):
+                    return
+            done = start_batch + n
+            if ckpt_every and steps == fused and (
+                    done - last_ckpt >= ckpt_every):
+                # step checkpoints land at the ends of chunks
+                self.save_checkpoint(
+                    runner.state, fold_num, epoch_num, step=done,
+                    resume_meta={
+                        "fold": fold_num, "epoch": epoch_num,
+                        "next_batch": done, "perm": perm,
+                        "host_rng": rng_state,
+                    })
+                last_ckpt = done
             if conf.get("debug"):
                 break
-        if prev_loss is not None:
-            record(prev_loss)
+        if single:
+            if n:
+                self._record(losses[n - 1], fold_num, epoch_num)
+        else:
+            self._defer(self._record_train_losses, losses[:n], fold_num,
+                        epoch_num)
 
-    def run_test_epoch(self, state, eval_step, dataset, fold_num, epoch_num):
+    def _record(self, loss, fold_num, epoch_num):
+        """Record one step's loss; True when the stop-on-loss breaker
+        fires."""
+        conf = self.conf
+        loss = float(loss)
+        self.results.update_meter(
+            "loss_epoch_{}".format(epoch_num), fold_num, loss)
+        self.results.update_loss(fold_num, loss)
+        if (conf.get("stop_on_loss")
+                and loss > conf.get("stop_thresh", 1.5)
+                and epoch_num > conf.get("stop_after_epoch", 1)):
+            print("stop on loss: loss={:.4f} exceeded stop_thresh".format(
+                loss))
+            return True
+        return False
+
+    # -- test epochs ----------------------------------------------------------
+
+    def run_test_epoch(self, runner, dataset, fold_num, epoch_num):
         batch_size = self.conf.get("batch_size", 16)
         idx = np.asarray(dataset.current_indices())
         if self._device_cache_eligible(dataset):
             ids, masks = _epoch_order(idx, batch_size)
-            batches = self._device_batches(dataset, ids, masks)
+            losses, outs = self._device_steps(runner, dataset, ids, masks,
+                                              False)
         else:
             loader = EpochLoader(dataset, batch_size, shuffle=False)
-            batches = PrefetchLoader(loader, map_fn=lambda b: self._to_device(
-                {"data": b["data"], "target": b["target"]}, batch_size))
-        losses, outs = [], []
-        for data, target, mask in batches:
-            loss, out = eval_step(state, data, target, mask)
-            losses.append(loss)
-            outs.append(out)
+            losses = torch.empty(len(loader), device=self.device)
+            outs = torch.empty(len(loader), batch_size, 2,
+                               device=self.device)
+            batches = PrefetchLoader(
+                loader, map_fn=lambda b: self.device_batch(b, batch_size))
+            for i, batch in enumerate(batches):
+                for key, value in batch.items():
+                    runner.inputs[key].copy_(value)
+                losses[i], outs[i] = runner.eval()
         # both paths visit idx in order; the pad rows end the last batch
-        self._record_eval(torch.stack(losses).cpu().numpy(),
-                          torch.cat(outs)[:len(idx)].cpu().numpy(), idx,
-                          dataset, fold_num, epoch_num)
+        self._defer(lambda: self._record_eval(
+            losses.cpu().numpy(),
+            outs.reshape(-1, 2)[:len(idx)].cpu().numpy(), idx, dataset,
+            fold_num, epoch_num))
 
     def _record_eval(self, losses, outs, idx, dataset, fold_num, epoch_num):
         """Test losses per step, then the per-window predictions
@@ -481,6 +681,7 @@ class Trainer:
             self.results.update_meter("test_loss", fold_num, float(loss))
             self.results.update_epoch_meter("test_loss", epoch_num,
                                             float(loss))
+        self.last_eval = {"index": idx, "logits": outs}
         self.record_classifier_results(outs.argmax(axis=-1), idx, dataset,
                                        fold_num, epoch_num)
 
@@ -506,16 +707,26 @@ class Trainer:
 
     # -- checkpointing --------------------------------------------------------
 
-    def save_checkpoint(self, state, fold_num, epoch_num):
-        """``<saved_models_dir>/<name>[-epochN][-foldK]`` with its
-        scaling and configuration sidecars; after an epoch, also the
-        resume point (this fold, the next epoch)."""
+    def save_checkpoint(self, state, fold_num, epoch_num, step=None,
+                        resume_meta=None):
+        """``<saved_models_dir>/<name>[-epochN][-foldK][-stepN]`` with its
+        scaling and configuration sidecars.  After an epoch the resume
+        point is this fold's next epoch; a step checkpoint passes its own
+        (``resume_meta``).  Recording queued by ``deferred_fetch`` runs
+        first."""
+        self._flush_deferred()
         base = self.conf.get("save_model") or "model"
         name = os.path.splitext(os.path.basename(base))[0]
         if epoch_num is not None:
             name += "-epoch{}".format(epoch_num)
         if self.n_kfolds > 1:
             name += "-fold{}".format(fold_num)
+        if step is not None:
+            name += "-step{}".format(step)
+        if epoch_num is not None and resume_meta is None:
+            resume_meta = {"fold": fold_num, "epoch": epoch_num + 1,
+                           "next_batch": 0,
+                           "host_rng": self.host_rng.bit_generator.state}
         out_dir = self.conf.get("saved_models_dir") or "saved_models"
         os.makedirs(out_dir, exist_ok=True)
         return checkpoint.save(
@@ -523,7 +734,5 @@ class Trainer:
             scaling=getattr(self, "_current_scaling", None),
             opt_state=state.optimizer.state_dict(),
             rng=state.generator.get_state(), step=state.step,
-            conf=self.conf.conf,
-            resume_meta=None if epoch_num is None else {
-                "fold": fold_num, "epoch": epoch_num + 1, "next_batch": 0},
+            conf=self.conf.conf, resume_meta=resume_meta,
         )

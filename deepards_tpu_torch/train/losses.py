@@ -45,7 +45,8 @@ def vacillating_loss(logits, target, alpha, weights=None):
     bce = bce_with_logits(logits, target, weights)
     p = torch.softmax(logits, dim=-1)
     frac = p.sum(dim=1) / p.shape[1]
-    alpha = torch.as_tensor(alpha, dtype=logits.dtype, device=logits.device)
+    # a fill, not a copy from the host: capturable in a CUDA graph
+    alpha = torch.full((), alpha, dtype=logits.dtype, device=logits.device)
     lh = -torch.log(2 * (torch.exp(-alpha) - 1) * frac + 1)
     rh = -torch.log(2 * torch.exp(-alpha) * (1 - frac) + 2 * frac - 1)
     lh = torch.where(torch.isnan(lh) | (lh > alpha), rh, lh)

@@ -1,11 +1,18 @@
-"""Train and eval steps and the optimizer.
+"""Train and eval steps, the optimizer, and the steps as CUDA graphs.
 
-Counterpart of ``deepards_tpu/train/steps.py``.  A step is the JAX
-package's jitted step run eagerly on the device: normalize the batch,
+Counterpart of ``deepards_tpu/train/steps.py``.  ``make_train_step``
+gives the JAX package's jitted step as eager PyTorch: normalize the batch,
 forward (with the row mask scoped for ``BatchStatNorm`` and the loss),
 backward, clamp every gradient element, optimizer step.  The params, the
 optimizer state and the dropout generator live in a ``TrainState`` and
 change in place.
+
+``StepRunner`` runs those steps over static input buffers.  On the card it
+captures one train step and one eval step as CUDA graphs and replays them:
+the counterpart of the JAX package's ``train_scan``/``eval_scan``, which
+run many steps in one dispatch, since an eager step is host-bound (~1,450
+kernel launches, the card idle most of the step).  On the CPU, or when the
+caller asks, it calls the eager steps on the same buffers.
 """
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -25,7 +32,8 @@ class ClippedOptimizer:
     the Nesterov momentum.  Its momentum buffer starts as the first
     decayed gradient, which equals optax's trace started from zeros.
     ``adam`` is ``torch.optim.Adam`` with no decay, as optax.adam in the
-    JAX chain.
+    JAX chain; on the card it keeps its step count on the device
+    (``capturable``), so a CUDA graph can hold its update.
     """
 
     def __init__(self, params, optimizer="sgd", learning_rate=0.001,
@@ -36,7 +44,9 @@ class ClippedOptimizer:
                 self.params, lr=learning_rate, momentum=0.9, nesterov=True,
                 weight_decay=weight_decay)
         elif optimizer == "adam":
-            self.optimizer = torch.optim.Adam(self.params, lr=learning_rate)
+            self.optimizer = torch.optim.Adam(
+                self.params, lr=learning_rate,
+                capturable=self.params[0].is_cuda)
         else:
             raise ValueError("unknown optimizer: {}".format(optimizer))
         self.clip_val = clip_val if clip_grad else None
@@ -84,8 +94,9 @@ def make_train_step(
     eval_dropout_active: Optional[bool] = None,
 ):
     """(train_step, eval_step), each called as ``(state, data, target,
-    mask)`` with raw (B, S, C, L) data, (B, 2) targets and the (B,) row
-    mask on the model's device; the model gives (B, 2) logits.
+    mask, meta=None)`` with raw (B, S, C, L) data, (B, 2) targets, the
+    (B,) row mask and, for a head with a metadata input, (B, S, M)
+    metadata, all on the model's device; the model gives (B, 2) logits.
 
     transform: the normalization applied to the raw data on the device.
     compute_dtype: params and data are cast to it for the forward and the
@@ -96,11 +107,13 @@ def make_train_step(
     Eval runs under ``torch.no_grad`` with dropout as
     ``eval_dropout_active`` says (default: as in training), drawing its
     masks from the same generator, so each eval advances it.
+    Neither step reads a value back to the host, so both can be captured
+    in a CUDA graph.
     """
     if eval_dropout_active is None:
         eval_dropout_active = dropout_active
 
-    def loss_wrap(state, data, target, mask, active):
+    def loss_wrap(state, data, target, mask, meta, active):
         if transform is not None:
             data = transform(data)
         model = state.model
@@ -111,16 +124,20 @@ def make_train_step(
 
             def apply(x):
                 return torch.func.functional_call(
-                    model, params, (x, not active, state.generator)).float()
+                    model, params,
+                    (x, not active, state.generator, meta)).float()
         else:
             def apply(x):
-                return model(x, not active, state.generator)
-        with bn_row_mask(torch.repeat_interleave(mask, data.shape[1])):
+                return model(x, not active, state.generator, meta)
+        # (B,) -> (B*S,): each sample's mask once per window, as
+        # repeat_interleave would, without its host sync
+        rows = mask[:, None].expand(-1, data.shape[1]).reshape(-1)
+        with bn_row_mask(rows):
             out = apply(data)
         return loss_fn(out, target, mask), out
 
-    def train_step(state, data, target, mask):
-        loss, _ = loss_wrap(state, data, target, mask, dropout_active)
+    def train_step(state, data, target, mask, meta=None):
+        loss, _ = loss_wrap(state, data, target, mask, meta, dropout_active)
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
@@ -128,7 +145,119 @@ def make_train_step(
         return loss.detach()
 
     @torch.no_grad()
-    def eval_step(state, data, target, mask):
-        return loss_wrap(state, data, target, mask, eval_dropout_active)
+    def eval_step(state, data, target, mask, meta=None):
+        return loss_wrap(state, data, target, mask, meta,
+                         eval_dropout_active)
 
     return train_step, eval_step
+
+
+class StepRunner:
+    """A fold's train and eval steps over static input buffers.
+
+    ``inputs`` holds one batch: ``data`` (B, S, C, L), ``target`` (B, 2),
+    ``mask`` (B,) and, with ``meta_shape``, ``meta``.  The caller fills
+    them in place (``copy_``, ``index_select(out=...)``) and then calls
+    ``train()`` (the loss) or ``eval()`` (the loss and the (B, 2)
+    logits).  What these return may be the graph's static outputs: copy
+    it out before the next call.
+
+    graphed: capture each step as a ``torch.cuda.CUDAGraph``.  A few
+    eager steps on a side stream come first, as capture asks, with
+    host syncs made errors (a sync cannot be captured); they change the
+    params, the optimizer state and the generator, so those are restored
+    in place afterwards, and optimizer state that the warm-up created
+    lazily is zeroed: a zero SGD momentum buffer gives 0 * 0.9 + g = g
+    at the first step, what torch's first step clones, and zero Adam
+    moments and step count are Adam's fresh state.  The generator is
+    registered with both graphs, so every replay draws new dropout masks
+    and advances it as an eager step does.  Capture binds the tensors it
+    reads: the params, the optimizer state and the buffers must be
+    changed in place from then on.  A capture that fails raises.
+    """
+
+    WARMUP_STEPS = 3  # eager steps before a capture
+
+    def __init__(self, state, train_step, eval_step, data_shape,
+                 meta_shape=None, graphed=False):
+        self.state = state
+        self._train_step = train_step
+        self._eval_step = eval_step
+        device = next(state.model.parameters()).device
+        batch = data_shape[0]
+        self.inputs = {
+            "data": torch.zeros(data_shape, device=device),
+            "target": torch.zeros(batch, 2, device=device),
+            "mask": torch.ones(batch, device=device),
+        }
+        if meta_shape is not None:
+            self.inputs["meta"] = torch.zeros(meta_shape, device=device)
+        self.graphs = None
+        if graphed:
+            if device.type != "cuda":
+                raise ValueError("CUDA graphs need the model on a CUDA "
+                                 "device, not {}".format(device))
+            self._capture()
+
+    def train(self):
+        if self.graphs is None:
+            return self._train_step(self.state, **self.inputs)
+        self.graphs["train"].replay()
+        self.state.step += 1
+        return self._train_loss
+
+    def eval(self):
+        if self.graphs is None:
+            return self._eval_step(self.state, **self.inputs)
+        self.graphs["eval"].replay()
+        return self._eval_loss, self._eval_out
+
+    def _capture(self):
+        state = self.state
+        params = list(state.model.parameters())
+        saved_params = [p.detach().clone() for p in params]
+        opt_state = state.optimizer.optimizer.state
+        saved_opt = {id(p): {k: v.clone() for k, v in s.items()
+                             if torch.is_tensor(v)}
+                     for p, s in opt_state.items()}
+        saved_rng = state.generator.get_state()
+        saved_step = state.step
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        sync_mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP_STEPS):
+                    self._train_step(state, **self.inputs)
+                    self._eval_step(state, **self.inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(sync_mode)
+        torch.cuda.current_stream().wait_stream(side)
+
+        with torch.no_grad():
+            for p, v in zip(params, saved_params):
+                p.copy_(v)
+            for p, s in opt_state.items():
+                before = saved_opt.get(id(p), {})
+                for k, v in s.items():
+                    if torch.is_tensor(v):
+                        if k in before:
+                            v.copy_(before[k])
+                        else:
+                            v.zero_()
+        state.generator.set_state(saved_rng)
+        state.optimizer.zero_grad()  # grads are allocated by the capture
+
+        graphs = {"train": torch.cuda.CUDAGraph(),
+                  "eval": torch.cuda.CUDAGraph()}
+        for graph in graphs.values():
+            graph.register_generator_state(state.generator)
+        with torch.cuda.graph(graphs["train"]):
+            self._train_loss = self._train_step(state, **self.inputs)
+        with torch.cuda.graph(graphs["eval"]):
+            self._eval_loss, self._eval_out = self._eval_step(
+                state, **self.inputs)
+        state.step = saved_step
+        self.graphs = graphs

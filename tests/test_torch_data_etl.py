@@ -118,16 +118,23 @@ def test_npz_round_trip_both_ways(ten_patients, tmp_path):
 
 
 def test_unported_batch_transforms_raise(ten_patients):
+    """The dataset's batch transforms, once refused, now run: a pipeline
+    needs its device named (without one it raises), normalizes, and
+    filters as the dataset asks."""
     (train, _), _ = _kfold_pair(ten_patients)
-    pipe = pipeline.BatchPipeline(train)
+    with pytest.raises(TypeError):
+        pipeline.BatchPipeline(train)
+    pipe = pipeline.BatchPipeline(train, "cpu")
     x = train.cache.data[:2]
     mu, std = train.scaling_for_current_fold()
     np.testing.assert_allclose(pipeline.gather_pipeline(train)(x),
                                (x - mu[0]) / std[0], rtol=1e-6)
     assert not pipe.is_padded
     train.butter_low = 0.5
-    with pytest.raises(NotImplementedError, match="butter_low"):
-        pipeline.BatchPipeline(train)
+    sos = pipeline.design_butter_sos(0.5, None)
+    want = pipeline.sosfilt(sos, torch.from_numpy((x - mu[0]) / std[0]))
+    np.testing.assert_allclose(pipeline.gather_pipeline(train)(x),
+                               want.numpy(), atol=1e-5, rtol=0)
 
 
 def test_cohort_without_start_time_raises(tmp_path):

@@ -38,6 +38,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.dtw.lib",
             "deepards_tpu_torch.transplant",
             "deepards_tpu_torch.cli.train",
+            "deepards_tpu_torch.cli.predict",
+            "deepards_tpu_torch.data.augment",
             "deepards_tpu_torch.config.config",
             "deepards_tpu_torch.data.breath",
             "deepards_tpu_torch.data.correlation",
@@ -75,32 +77,43 @@ from deepards_tpu_torch.data.synthetic import generate_cohort
 work = sys.argv[1]
 cohort = generate_cohort(work + "/cohort", n_patients=4,
                          n_breaths_per_patient=80, seed=3)
-trainer = main(chip_smoke.CONFIG1_FLAGS + [
+flags = chip_smoke.CONFIG1_FLAGS + [
     "--data-path", work + "/cohort", "--cohort-file", cohort,
     "--n-sub-batches", "4", "--batch-size", "8", "--kfolds", "2",
     "--only-fold", "0", "--epochs", "1", "--device", "cpu",
-    "--results-dir", work + "/results", "--save-model", "m.pt",
-    "--saved-models-dir", work + "/models"])
+    "--results-dir", work + "/results", "--transforms", "ie_ww",
+    "--butter-low", "0.5"]
+trainer = main(flags + ["--save-model", "m.pt",
+                        "--saved-models-dir", work + "/models"])
 assert trainer.results.get_meter("loss", 0).values
 assert len(trainer.results.get_meter("test_auc", 0).values) == 1
+from deepards_tpu_torch.cli.predict import main as predict
+rows, votes = predict(["--checkpoint", work + "/models/m-fold0",
+                       "-o", work + "/p.csv", "--votes-output",
+                       work + "/v.json"] + flags)
+assert rows and votes
 """
 
 
 def test_training_needs_no_pandas_sklearn_or_yaml(tmp_path):
     """The path chip_smoke.py drives, a 1-fold 1-epoch CPU training from
-    config 1's flags, runs with pandas, scikit-learn and PyYAML blocked."""
+    config 1's flags with augmentation and the Butterworth filter, then
+    ``cli.predict`` on its checkpoint, runs with pandas, scikit-learn and
+    PyYAML blocked."""
     out = subprocess.run(
         [sys.executable, "-c", _TRAIN_WITHOUT, str(tmp_path)], cwd=ROOT,
         env={**os.environ, "PYTHONPATH": ROOT},
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert (tmp_path / "models" / "m-fold0.scaling.json").exists()
+    assert (tmp_path / "p.csv").exists() and (tmp_path / "v.json").exists()
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
     """With no card, the default device is refused, never replaced."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from deepards_tpu_torch.cli.predict import main as predict_main
     from deepards_tpu_torch.cli.serve import InferenceEngine
     from deepards_tpu_torch.cli.train import main as train_main
     from deepards_tpu_torch.config.config import Configuration
@@ -122,6 +135,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
         per_breath_dtw_scores(list(np.zeros((5, 8), np.float32)))
     with pytest.raises(RuntimeError, match="CUDA"):
         train_main(["--data-path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        predict_main(["--checkpoint", str(tmp_path / "missing.pt"),
+                      "--data-path", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(Configuration(overrides={"data_path": str(tmp_path)}))
 
