@@ -21,6 +21,14 @@ device-cache steps of config 1 to the same steps run eagerly, and
 (augmentation, the Butterworth filter, fused host epochs, step
 checkpoints and a resume that must reproduce the run, ``cli.predict``
 against the trainer's eval, the metadata input, the FFT channels).
+Then the DTW heterogeneity workflow: ``dtw_similarity`` scores the
+inter-patient matrix of a seeded 80-patient cohort (158,000 window pairs
+at n = 4480 through the kernel), holds pairs of the sweep to
+``dtw_reference`` and a sub-cohort to the CPU exactly, times host pad,
+copy and kernel, and picks the hetero split files on the matrix;
+``hetero`` drives the study's CLIs on an ETL cohort (``cli.sim_dissim
+hetero``, ``cli.perform_data_splitting``, a holdout ``cli.train``,
+``breakdown`` and a cached ``cli.analysis lstm-dtw``).
 Every phase prints one JSON line; any failure exits nonzero.  The last
 two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints
@@ -160,13 +168,13 @@ def npz(**arrays):
     return buf.getvalue()
 
 
-def make_windows(rng, n):
-    """(n, S, C, L) flow-like windows: a half-sine inspiration and an
+def make_windows(rng, n, s=S):
+    """(n, s, C, L) flow-like windows: a half-sine inspiration and an
     exponential expiration per breath, random period and amplitude, noise."""
     t = np.arange(L, dtype=np.float64) * 0.02
-    period = rng.uniform(2.5, 4.0, size=(n, S, C, 1))
-    amp = rng.uniform(30.0, 60.0, size=(n, S, C, 1))
-    phase = (t / period + rng.uniform(0, 1, size=(n, S, C, 1))) % 1.0
+    period = rng.uniform(2.5, 4.0, size=(n, s, C, 1))
+    amp = rng.uniform(30.0, 60.0, size=(n, s, C, 1))
+    phase = (t / period + rng.uniform(0, 1, size=(n, s, C, 1))) % 1.0
     flow = np.where(
         phase < 0.35,
         amp * np.sin(np.pi * phase / 0.35),
@@ -423,7 +431,8 @@ def phase_kernel():
          sass=per_cell, sms=sms, sm_clock_hz=clock_hz,
          resident_warps_per_sm=resident,
          tolerance="exact vs dtw_reference; rtol 1e-4 vs f64 oracle")
-    return {**shapes[-1], "max_abs_err": max_err}
+    return {**shapes[-1], "max_abs_err": max_err,
+            "strip_fp32_per_cell": per_cell["strip"]["fp32_per_cell"]}
 
 
 def phase_serve(workdir, device="cuda"):
@@ -1174,6 +1183,244 @@ def phase_train(workdir, smi, device="cuda"):
     emit("train", **fields)
 
 
+# the DTW heterogeneity sweep: the reference hetero runner's cohort of 80
+# patients (its ``hetero`` defaults: train_n 40, test_n 6), 60 windows each
+SIM_PATIENTS, SIM_WINDOWS, SIM_N_RANDOM = 80, 60, 50
+SIM_KEEP = 256  # pairs of the sweep's first chunk held to dtw_reference
+SUB_PATIENTS, SUB_N_RANDOM = 8, 4  # the sub-cohort held card vs CPU
+
+
+def cohort_dataset(workdir, data, patho, n_windows):
+    """An ``ARDSRawDataset`` over windows ``data`` of len(patho) patients
+    ("1", "2", ...) with ``n_windows`` each, patient k of class patho[k]."""
+    from deepards_tpu_torch.data.dataset import ARDSRawDataset
+    from deepards_tpu_torch.data.windowing import WindowCache
+
+    n_patients = len(patho)
+    cohort = os.path.join(workdir, "cohort-{}.csv".format(n_patients))
+    with open(cohort, "w") as f:
+        f.write("Patient Unique Identifier,Pathophysiology\n")
+        f.writelines("{},{}\n".format(k + 1, "ARDS" if y else "OTHER")
+                     for k, y in enumerate(patho))
+    cache = WindowCache(
+        data=data,
+        target=np.eye(2, dtype=np.float32)[np.repeat(patho, n_windows)],
+        hours=np.tile(np.arange(n_windows * data.shape[1], dtype=np.float32)
+                      .reshape(n_windows, -1) * 0.05, (n_patients, 1)),
+        patient_idx=np.repeat(np.arange(n_patients), n_windows).astype(
+            np.int32),
+        patients=[str(k + 1) for k in range(n_patients)])
+    return ARDSRawDataset(workdir, 1, cohort, data.shape[1],
+                          "unpadded_centered_sequences", cache=cache)
+
+
+def phase_dtw_similarity(workdir, device="cuda", per_cell=None,
+                         n_patients=SIM_PATIENTS, n_windows=SIM_WINDOWS,
+                         nb=S, train_n=40, test_n=6):
+    """The inter-patient DTW matrix of a seeded cohort (``n_patients`` x
+    ``n_windows`` windows of (nb, 1, 224), half of the patients ARDS, each
+    patient's flow at its own scale) through ``find_patient_similarity``,
+    ``random`` method, 50 window pairs per patient pair raveled to n = nb
+    x 224: C(80, 2) x 50 = 158,000 pairs at n = 4480 on the card.  Holds
+    the matrix (symmetric, zero diagonal, finite, >= 0), SIM_KEEP pairs of
+    the first chunk to dtw_reference on the same device exactly, and a
+    sub-cohort's matrix on the device to the CPU's exactly; times the
+    sweep's host pad, copy and kernel per chunk, and
+    ``generate_hetero_splits`` with the CLI's defaults on the matrix.
+    Returns the sweep's kernel launches."""
+    import torch
+
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+    from deepards_tpu_torch.cli.sim_dissim import generate_hetero_splits
+    from deepards_tpu_torch.config import splitfile
+    from deepards_tpu_torch.dtw.lib import SweepTimer, find_patient_similarity
+    from deepards_tpu_torch.ops.dtw import dtw_reference
+
+    rng = np.random.default_rng(SEED + 7)
+    patho = np.arange(n_patients) % 2
+    data = make_windows(rng, n_patients * n_windows, nb)
+    data *= np.repeat(rng.uniform(0.6, 1.4, n_patients),
+                      n_windows)[:, None, None, None].astype(np.float32)
+    ds = cohort_dataset(workdir, data, patho, n_windows)
+    n = nb * C * L
+    pairs = n_patients * (n_patients - 1) // 2 * min(SIM_N_RANDOM, n_windows)
+
+    timer = SweepTimer(keep=SIM_KEEP)
+    dtw_ops.launches = 0
+    t0 = time.perf_counter()
+    mat = find_patient_similarity(ds, dist_method="random",
+                                  n_random=SIM_N_RANDOM, device=device,
+                                  timer=timer)
+    seconds = time.perf_counter() - t0
+    launches = dtw_ops.launches
+    v = mat.values
+    if v.shape != (n_patients, n_patients) or not np.isfinite(v).all() or \
+            (v < 0).any() or not (v == v.T).all() or np.diag(v).any() or \
+            not (v[~np.eye(n_patients, dtype=bool)] > 0).all():
+        raise AssertionError("similarity matrix: not a distance matrix")
+
+    a, b, la, lb, d = timer.kept
+    kept_err = float((d - dtw_reference(a, b, la, lb)).abs().max())
+    if kept_err != 0.0 or not torch.isfinite(d).all():
+        raise AssertionError("{} pairs of the sweep vs dtw_reference: max "
+                             "abs {}".format(SIM_KEEP, kept_err))
+
+    sub = cohort_dataset(workdir, data[:SUB_PATIENTS * n_windows],
+                         patho[:SUB_PATIENTS], n_windows)
+    t1 = time.perf_counter()
+    sub_mats = [find_patient_similarity(
+        sub, dist_method="random", n_random=SUB_N_RANDOM,
+        rng=np.random.default_rng(1), device=dev) for dev in (device, "cpu")]
+    sub_seconds = time.perf_counter() - t1
+    sub_err = float(np.abs(sub_mats[0].values - sub_mats[1].values).max())
+    if sub_err != 0.0 or sub_mats[0].patients != sub_mats[1].patients:
+        raise AssertionError("sub-cohort matrix, device vs CPU: max abs "
+                             "{}".format(sub_err))
+
+    t1 = time.perf_counter()
+    written = generate_hetero_splits(ds, os.path.join(workdir, "splits"),
+                                     train_n=train_n, test_n=test_n,
+                                     similarity=mat)
+    split_seconds = time.perf_counter() - t1
+    for path in written:
+        split = splitfile.read(path)
+        if len(split["train"]) != train_n - train_n % 2 or \
+                set(split["train"]) & set(split["test"]) or not split["test"]:
+            raise AssertionError("bad split file {}: {}".format(path, split))
+
+    fields = {
+        "card": nvidia_smi_line() if device == "cuda" else None,
+        "patients": n_patients, "windows_per_patient": n_windows, "n": n,
+        "pairs": pairs, "chunks": len(timer.pad_s), "launches": launches,
+        "seconds": seconds, "pairs_per_s": pairs / seconds,
+        "host_pad_s": sum(timer.pad_s), "copy_s": sum(timer.copy_s),
+        "kernel_ms": sum(timer.kernel_ms),
+        "per_chunk": {"pad_s": timer.pad_s, "copy_s": timer.copy_s,
+                      "kernel_ms": timer.kernel_ms},
+        "kept_pairs_vs_reference_max_abs": kept_err,
+        "sub_cohort": {"patients": SUB_PATIENTS, "n_random": SUB_N_RANDOM,
+                       "max_abs_device_vs_cpu": sub_err,
+                       "seconds": sub_seconds},
+        "distance_range": [float(v[v > 0].min()), float(v.max())],
+        "hetero_splits": {"files": len(written), "train_n": train_n,
+                          "test_n": test_n, "seconds": split_seconds},
+    }
+    if device == "cuda":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        clock_hz = sm_clock_hz()
+        cells = float(pairs) * n * n
+        ops_ms = cells * per_cell / (sms * SM_FP32_LANES * clock_hz) * 1e3
+        bytes_ms = (2 * pairs * n * 4 + 3 * pairs * 4) / HBM_BYTES_PER_S * 1e3
+        kernel_ms = fields["kernel_ms"]
+        fields.update(
+            cells=cells, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            kernel_share_of_bound=max(ops_ms, bytes_ms) / kernel_ms,
+            kernel_pairs_per_s=pairs / kernel_ms * 1e3,
+            other_host_s=seconds - fields["host_pad_s"] - fields["copy_s"]
+            - kernel_ms / 1e3)
+        if launches == 0:
+            raise AssertionError("the similarity sweep launched no kernel")
+    print("dtw_similarity: {} pairs at n = {} in {} s: pad {} s, copy {} s, "
+          "kernel {} ms".format(pairs, n, seconds, fields["host_pad_s"],
+                                fields["copy_s"], fields["kernel_ms"]),
+          flush=True)
+    emit("dtw_similarity", **fields)
+    return launches
+
+
+# the generated experiment train_sim_test_sim_dissim_split_1.yml
+# (deepards_tpu/config/experiment_files/generated/) as flags, epochs cut
+HETERO_TRAIN_FLAGS = [
+    "--base-network", "densenet18", "--batch-size", "16", "--clip-val",
+    "0.01", "--dataset-type", "unpadded_centered_sequences", "--network",
+    "cnn_linear", "--holdout-set-type", "train_sim_test_sim_dissim_split_1",
+    "--final-validation", "--epochs", "1"]
+
+
+def phase_hetero(workdir, device="cuda", nb=S, n_patients=16,
+                 n_breaths=600, train_n=6, test_n=4):
+    """The heterogeneity study as a user runs it, through the CLIs on an
+    ETL cohort: ``cli.sim_dissim hetero`` on a saved ``.npz`` dataset,
+    ``cli.perform_data_splitting preset_file`` on split 1, a holdout
+    ``cli.train`` on it, ``cli.sim_dissim breakdown`` of its results, and
+    ``cli.analysis lstm-dtw`` twice, the second from its cache with no
+    kernel launch.  Returns the kernel launches of the chain."""
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+    from deepards_tpu_torch.cli import analysis, perform_data_splitting
+    from deepards_tpu_torch.cli import sim_dissim
+    from deepards_tpu_torch.cli.train import main as train_main
+    from deepards_tpu_torch.config import splitfile
+    from deepards_tpu_torch.data.dataset import ARDSRawDataset
+    from deepards_tpu_torch.data.synthetic import generate_cohort
+
+    def path(*parts):
+        return os.path.join(workdir, *parts)
+
+    data_path = path("hetero_cohort")
+    cohort = generate_cohort(data_path, n_patients=n_patients,
+                             n_breaths_per_patient=n_breaths, seed=SEED + 8,
+                             subdirs=("all_data", "aim1_70_30_training"))
+    npz = ARDSRawDataset(data_path, 1, cohort, nb,
+                         "unpadded_centered_sequences").save(
+                             path("hetero.npz"))
+    steps = {}
+
+    def step(name, argv, main):
+        before = dtw_ops.launches
+        t0 = time.perf_counter()
+        out = main(argv)
+        steps[name] = {"seconds": time.perf_counter() - t0,
+                       "launches": dtw_ops.launches - before}
+        return out
+
+    written = step("sim_dissim_hetero", [
+        "hetero", "--train-from-pickle", npz, "-o", path("splits"),
+        "--n-splits", "3", "--train-n", str(train_n), "--test-n",
+        str(test_n), "--device", device], sim_dissim.main)
+    split_file = written[0]
+    split = splitfile.read(split_file)
+    step("perform_data_splitting", [
+        "-dp", data_path, "-c", cohort, "preset_file", "-f", split_file],
+        perform_data_splitting.main)
+    trainer = step("train", HETERO_TRAIN_FLAGS + [
+        "--n-sub-batches", str(nb), "--data-path", data_path,
+        "--cohort-file", cohort, "--results-dir", path("hetero_results"),
+        "--device", device], train_main)
+    losses = trainer.results.get_meter("loss", 0).values
+    tested = {r["patient"] for r in trainer.results.results}
+    if not losses or not np.isfinite(losses).all() or \
+            tested != set(split["test"]):
+        raise AssertionError("holdout training: losses {}, tested {} of "
+                             "{}".format(losses, tested, split["test"]))
+    record = [n for n in os.listdir(path("hetero_results"))
+              if "_results_" in n]
+    frames = step("breakdown", ["breakdown", path("hetero_results",
+                                                   record[0]), split_file],
+                  sim_dissim.main)
+    if set(frames) != {"similar", "dissimilar"} or any(
+            r["group"] != kind for kind, rows in frames.items()
+            for r in rows):
+        raise AssertionError("breakdown: {}".format(frames))
+    argv = ["lstm-dtw", "--train-from-pickle", npz, "--cache-dir",
+            path("dtw_cache"), "--device", device]
+    first = step("lstm_dtw", argv, analysis.main)
+    again = step("lstm_dtw_cached", argv, analysis.main)
+    if again != first or steps["lstm_dtw_cached"]["launches"]:
+        raise AssertionError("the cached lstm-dtw ran the kernel or "
+                             "differs: {}".format(steps))
+    if device == "cuda" and not (steps["sim_dissim_hetero"]["launches"]
+                                 and steps["lstm_dtw"]["launches"]):
+        raise AssertionError("the hetero chain launched no kernel: {}"
+                             .format(steps))
+    emit("hetero", patients=n_patients, n_sub_batches=nb, split=split,
+         steps=steps, train_losses=losses,
+         breakdown={k: [{c: r[c] for c in ("patho", "accuracy", "auc")}
+                        for r in rows] for k, rows in frames.items()},
+         fold_mean_dtw=first["fold_mean_dtw"])
+    return sum(s["launches"] for s in steps.values())
+
+
 def main():
     import torch
 
@@ -1207,12 +1454,26 @@ def main():
         phase_config1_surface(work)
     emit("train_path_kernel_launches", dtw=dtw_ops.launches)
 
+    # the DTW heterogeneity paths: the sweep's counts from 0 just before
+    # it (inside the phase, whose checks launch the kernel too), the CLI
+    # chain's just before it, each read just after
+    by_path = {"serve": launches}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        by_path["dtw_similarity"] = phase_dtw_similarity(
+            work, per_cell=dtw_stats["strip_fp32_per_cell"])
+        dtw_ops.launches = 0
+        by_path["hetero"] = phase_hetero(work)
+        if dtw_ops.launches != by_path["hetero"]:
+            raise AssertionError("hetero launches: {} counted, {} by step"
+                                 .format(dtw_ops.launches, by_path["hetero"]))
+
     print(json.dumps({"kernels": [{
         "name": "dtw",
         "route": "cuda",
         "source": "deepards_tpu_torch/ops/csrc/dtw.cu",
         "replaces": "deepards_tpu/ops/dtw.py:119",
-        "launches": launches,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": dtw_stats["max_abs_err"],
         "ms": dtw_stats["ms"],
         "plain_ms": dtw_stats["plain_ms"],

@@ -162,14 +162,17 @@ def fractional_patients(indices, patient_per_row, patho_per_patient, frac,
 
 def undersample_by_homogeneity(indices, dtw_scores, undersample_factor,
                                std_factor, rng):
-    """Drop a fraction of the most DTW-homogeneous windows per patient.
+    """Drop a fraction of the most DTW-homogeneous windows.
 
-    TPU-native equivalent of PatientLevelHomogeneityUndersampler
-    (reference: deepards/dataset.py:76-106): for each patient, windows whose
-    cached DTW score is within ``std_factor``·std of the patient median are
-    candidates; drop ``undersample_factor`` fraction of candidates.
+    The JAX package's counterpart of PatientLevelHomogeneityUndersampler
+    (reference: deepards/dataset.py:76-106), kept as it computes: windows
+    whose DTW score is within ``std_factor``·std of the median, both taken
+    over every scored window (not per patient), are candidates; drop
+    ``undersample_factor`` fraction of candidates.
 
-    ``dtw_scores``: dict window_index -> score (from the DTW cache).
+    ``dtw_scores``: dict window_index -> score
+    (``dtw.lib.build_patient_score_map``).  The trainer's datasets start
+    with none, as the JAX package's do, so the trainer drops nothing.
     """
     if undersample_factor < 0:
         return np.asarray(indices)

@@ -15,6 +15,8 @@ D[i-1, j-1]).  Inputs are (B, n) float32 plus (B,) int32 lengths in
 - ``dtw_batch``: the dispatch.  CUDA tensors go to the kernel, CPU tensors
   to ``dtw_reference``.
 - ``dtw_numpy``: the float64 host oracle.
+- ``dtw_full``: one pair on the host, with the accumulated-cost matrix
+  and the warping path.
 """
 import ctypes
 import functools
@@ -43,6 +45,44 @@ def dtw_numpy(a, b):
             cost = abs(a[i - 1] - b[j - 1])
             D[i, j] = cost + min(D[i - 1, j], D[i, j - 1], D[i - 1, j - 1])
     return D[n, m]
+
+
+def dtw_full(a, b):
+    """One pair's DTW with its accumulated-cost matrix and optimal warping
+    path (dtwco's ``dtw(x, y, dist_only=False)``), in float64 on the host.
+
+    Returns (distance, cost (n, m), (path_x, path_y)), the path running
+    from (0, 0) to (n-1, m-1).  Backtracking is sequential over one pair,
+    so this is host code; distances in bulk go through ``dtw_batch``.
+    """
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    n, m = len(a), len(b)
+    D = np.full((n + 1, m + 1), np.inf)
+    D[0, 0] = 0.0
+    cost = np.abs(a[:, None] - b[None, :])
+    for i in range(1, n + 1):
+        D[i, 1:] = cost[i - 1]
+        prev = D[i - 1]
+        run = D[i]
+        for j in range(1, m + 1):
+            run[j] += min(prev[j], prev[j - 1], run[j - 1])
+    i, j = n - 1, m - 1
+    px, py = [i], [j]
+    while i > 0 or j > 0:
+        if i == 0:
+            j -= 1
+        elif j == 0:
+            i -= 1
+        else:
+            # diagonal, then up, then left on ties
+            step = np.argmin((D[i, j], D[i, j + 1], D[i + 1, j]))
+            i -= step in (0, 1)
+            j -= step in (0, 2)
+        px.append(i)
+        py.append(j)
+    return (float(D[n, m]), D[1:, 1:],
+            (np.asarray(px[::-1]), np.asarray(py[::-1])))
 
 
 def dtw_reference(a, b, la, lb):

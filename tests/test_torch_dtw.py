@@ -130,10 +130,18 @@ def test_per_breath_scores_match_jax_lib():
 
 @pytest.mark.parametrize("rolling", [1, 3])
 def test_dtw_analyze_matches_jax_lib(rolling):
+    """The port takes the prediction rows' window indices and hours as
+    arrays (window 11 has two rows, whose hours its breaths cycle through)
+    and returns arrays equal to the JAX package's frame."""
     rng = np.random.default_rng(13)
     pt_data = rng.normal(size=(4, 3, 1, 40)).astype(np.float32)
-    preds = pd.DataFrame({"hour": [0.5, 1.5, 2.5, 3.5]},
-                         index=[10, 11, 12, 13])
-    got = lib.dtw_analyze(pt_data, 3, rolling, preds, device="cpu")
-    want = jlib.dtw_analyze(pt_data, 3, rolling, preds)
-    pd.testing.assert_frame_equal(got, want, rtol=1e-6)
+    obs = np.array([10, 11, 11, 12, 13])
+    hours = np.array([0.5, 1.5, 1.75, 2.5, 3.5])
+    got = lib.dtw_analyze(pt_data, 3, rolling, obs, hours, device="cpu")
+    want = jlib.dtw_analyze(pt_data, 3, rolling,
+                            pd.DataFrame({"hour": hours}, index=obs))
+    assert isinstance(got, lib.DTWFrame)
+    np.testing.assert_array_equal(got.index, want.index.to_numpy())
+    np.testing.assert_allclose(got.dtw, want.dtw.to_numpy(), **EXACT)
+    np.testing.assert_array_equal(got.hour, want.hour.to_numpy())
+    assert got.index.dtype == np.int64 and len(got.index) == 12

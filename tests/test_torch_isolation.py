@@ -39,6 +39,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.transplant",
             "deepards_tpu_torch.cli.train",
             "deepards_tpu_torch.cli.predict",
+            "deepards_tpu_torch.cli.sim_dissim",
+            "deepards_tpu_torch.cli.perform_data_splitting",
+            "deepards_tpu_torch.cli.analysis",
+            "deepards_tpu_torch.config.splitfile",
+            "deepards_tpu_torch.dtw.kmedoids",
             "deepards_tpu_torch.data.augment",
             "deepards_tpu_torch.config.config",
             "deepards_tpu_torch.data.breath",
@@ -109,16 +114,55 @@ def test_training_needs_no_pandas_sklearn_or_yaml(tmp_path):
     assert (tmp_path / "p.csv").exists() and (tmp_path / "v.json").exists()
 
 
+_HETERO_WITHOUT = r"""
+import sys
+for blocked in ("pandas", "sklearn", "yaml", "jax", "deepards_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+launches = chip_smoke.phase_hetero(sys.argv[1], device="cpu", nb=2,
+                                   n_patients=12, n_breaths=60, train_n=4,
+                                   test_n=2)
+assert launches == 0  # the CPU runs the kernel's plain version
+"""
+
+
+def test_hetero_chain_needs_no_pandas_sklearn_or_yaml(tmp_path):
+    """chip_smoke.py's hetero phase on the CPU at a small size:
+    ``cli.sim_dissim hetero`` on a saved dataset, ``cli.perform_data_
+    splitting preset_file``, a holdout ``cli.train``, ``breakdown`` of its
+    results and ``cli.analysis lstm-dtw`` twice (the second from its
+    cache), with pandas, scikit-learn, PyYAML, JAX and deepards_tpu
+    blocked."""
+    out = subprocess.run(
+        [sys.executable, "-c", _HETERO_WITHOUT, str(tmp_path)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    phase = [json.loads(line) for line in out.stdout.splitlines()
+             if line.startswith('{"phase": "hetero"')]
+    assert len(phase) == 1 and set(phase[0]["steps"]) == {
+        "sim_dissim_hetero", "perform_data_splitting", "train", "breakdown",
+        "lstm_dtw", "lstm_dtw_cached"}
+    assert (tmp_path / "splits" / "train_sim_test_sim_dissim_split_2.yml"
+            ).exists()
+    assert os.listdir(tmp_path / "hetero_cohort" / "experiment1" /
+                      "train_sim_test_sim_dissim_split_1train" / "raw")
+
+
 def test_entry_points_raise_without_cuda(tmp_path):
     """With no card, the default device is refused, never replaced."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from deepards_tpu_torch.cli.analysis import main as analysis_main
     from deepards_tpu_torch.cli.predict import main as predict_main
     from deepards_tpu_torch.cli.serve import InferenceEngine
     from deepards_tpu_torch.cli.train import main as train_main
     from deepards_tpu_torch.config.config import Configuration
     from deepards_tpu_torch.dtw.lib import (
         batched_dtw_pairs,
+        find_patient_similarity,
         per_breath_dtw_scores,
     )
     from deepards_tpu_torch.ops.dtw import dtw_batch
@@ -140,6 +184,16 @@ def test_entry_points_raise_without_cuda(tmp_path):
                       "--data-path", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(Configuration(overrides={"data_path": str(tmp_path)}))
+    import chip_smoke
+
+    ds = chip_smoke.cohort_dataset(
+        str(tmp_path), np.ones((4, 2, 1, 224), np.float32), [0, 1], 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        find_patient_similarity(ds)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analysis_main(["lstm-dtw", "--train-from-pickle",
+                       ds.save(str(tmp_path / "ds.npz")), "--cache-dir",
+                       str(tmp_path / "cache")])
 
 
 def test_dtw_cuda_refuses_cpu_tensors():
