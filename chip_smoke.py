@@ -21,6 +21,13 @@ device-cache steps of config 1 to the same steps run eagerly, and
 (augmentation, the Butterworth filter, fused host epochs, step
 checkpoints and a resume that must reproduce the run, ``cli.predict``
 against the trainer's eval, the metadata input, the FFT channels).
+Then benchmark configs 2, 3 and 4 (``config2``: cnn_linear over resnet18
+on padded breaths; ``config3``: the breath-metadata regressor, Adam, the
+``main`` holdout; ``config4``: cnn_lstm), each trained through the CLI at
+full width, 3 float32 steps held against the CPU, 8 graphed steps held to
+eager ones, a trained checkpoint served and predicted (configs 2 and 4),
+and the bf16 graphed step timed over a 4096-window device cache; no
+training path may launch the DTW kernel.
 Then the DTW heterogeneity workflow: ``dtw_similarity`` scores the
 inter-patient matrix of a seeded 80-patient cohort (158,000 window pairs
 at n = 4480 through the kernel), holds pairs of the sweep to
@@ -65,6 +72,30 @@ CONFIG1_FLAGS = [
     "--oversample-minority", "--kfolds", "5", "--epochs", "10",
     "--batch-size", "16", "--network", "cnn_linear", "--n-sub-batches", "20",
 ]
+# benchmark configs 2, 3 and 4 the same way
+# (deepards_tpu/config/experiment_files/padded_breath_by_breath_resnet18.yml,
+# bm_pretraining_regression.yml, unpadded_centered_nb20_cnn_lstm.yml)
+CONFIG2_FLAGS = [
+    "--clip-val", "0.01", "--clip-grad",
+    "--dataset-type", "padded_breath_by_breath", "--base-network", "resnet18",
+    "--oversample-minority", "--kfolds", "5", "--epochs", "10",
+    "--batch-size", "16", "--network", "cnn_linear", "--n-sub-batches", "20",
+]
+CONFIG3_FLAGS = [
+    "--dataset-type", "padded_breath_by_breath_with_full_bm_target",
+    "--network", "cnn_regressor", "--holdout-set-type", "main",
+    "--epochs", "10", "--batch-size", "64", "--n-sub-batches", "1",
+    "--optimizer", "adam", "--learning-rate", "0.001",
+]
+CONFIG4_FLAGS = [
+    "--clip-val", "0.01", "--clip-grad",
+    "--dataset-type", "unpadded_centered_sequences",
+    "--oversample-minority", "--kfolds", "5", "--epochs", "10",
+    "--batch-size", "16", "--network", "cnn_lstm", "--n-sub-batches", "20",
+    "--time-series-hidden-units", "16",
+]
+CONFIG_FLAGS = {"config1": CONFIG1_FLAGS, "config2": CONFIG2_FLAGS,
+                "config3": CONFIG3_FLAGS, "config4": CONFIG4_FLAGS}
 
 # published H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -560,24 +591,58 @@ def phase_dtw_served(windows, device="cuda"):
          max_abs_vs_cpu=err, seconds=seconds)
 
 
-TRAIN_EPOCHS = 2  # config 1 trains 10
-# card vs CPU after 3 steps from the same params and batches, TF32 off.
-# In float32 every tensor but the first conv's kernel is held to 1e-5.
-# That kernel's gradient is a sum that cancels (the norm after it makes it
-# scale-free): float32 misses it by a few 1e-3 against float64, so two
-# float32 summation orders put some elements on opposite sides of the
-# 0.01 clamp, and its float32 params after 3 steps are only reported.  It
-# is held instead by (a) its float32 gradient on the card against the
-# CPU's float64 one at the check's batches, within 2e-2: above the CPU's
-# own float32 reading (``first_conv_grad_err``) and below what a zero
-# gradient or another batch's gradient would give
-# (``first_conv_grad_controls``, which the script requires to exceed the
-# limit), and (b) the same 3 steps in float64, where every tensor, that
-# kernel included, must agree to 1e-5.
-TRAIN_STEP_ATOL = dict(loss=1e-4, params=1e-5, first_conv_grad=2e-2)
-FIRST_CONV = "breath_block.conv0.weight"
+TRAIN_EPOCHS = 2  # the configs train 10
+# card vs CPU after each of 3 steps from the same params and batches, TF32
+# off: losses within 1e-4 and every element of every param within 1e-5,
+# in float32 and in float64, but for two kinds of element in float32:
+# - the tensors named by ``BY_GRADIENT``'s prefixes: the first conv, and
+#   for resnet18 its stem and first stage, whose gradient sums cancel, so
+#   that two float32 summation orders move some of their elements apart
+#   by more than 1e-5 in 3 steps.  Each is held instead (a) by its float32
+#   gradient on the card against the CPU's float64 one at the check's 3
+#   batches, within 2e-2 of the largest float64 element: above the CPU's
+#   own float32 reading (``grad_err.cpu``) and below what a zero gradient
+#   or another batch's gradient gives (``grad_controls``, which must
+#   exceed the limit), and (b) by the float64 run, which holds every
+#   element;
+# - Adam's (config 3).  Its first update is lr * g / (|g| + eps), about
+#   lr * sign(g): an element is not held after it where gradients within
+#   4x the CPU's own float32 error in its tensor (of the float64 gradient)
+#   could move that update by more than 1e-5 (``skipped_noise_level``).
+#   Its later updates divide moments of gradients that cancel, and at
+#   this batch float32's last bits move most elements by up to lr
+#   (``python -m deepards_tpu_torch.train.adam_spread`` reads this by
+#   batch, params and targets).  So float32 Adam is held after its first
+#   step and by the losses of steps 1 and 2 (the third is taken after the
+#   second update), and the card's Adam over all 3 steps by the float64
+#   run: the card runs training's ``capturable`` Adam, whose step count is
+#   float32, and the CPU ``Float32CountAdam``, the same arithmetic
+#   written out.
+# Each float32 check must pass the CPU against itself with the batch's
+# rows permuted (``cpu_rows_permuted``), and each check must fail a
+# planted fault: the head's bias with its updates skipped (``planted``),
+# and for Adam in float64 torch's own Adam, whose bias corrections are
+# float64.
+TRAIN_STEP_ATOL = dict(loss=1e-4, params=1e-5, grad=2e-2)
+BY_GRADIENT = {
+    "config1": ("breath_block.conv0.",),
+    "config2": ("breath_block.convs.0.", "breath_block.norms.0.",
+                "breath_block.blocks.0.", "breath_block.blocks.1."),
+    "config3": ("breath_block.conv0.",),
+    "config4": ("breath_block.conv0.",),
+}
 TRAIN_SERVE_ATOL = 1e-5  # the same params and batch on one device
 MEASURE_WINDOWS = 4096  # the device-cache epoch timed: 256 steps of 16
+
+
+def config_conf(name, *flags):
+    """The ``Configuration`` of benchmark config ``name``'s flags and
+    ``flags``."""
+    from deepards_tpu_torch.cli.train import build_parser
+    from deepards_tpu_torch.config.config import Configuration
+
+    return Configuration(build_parser().parse_args(
+        CONFIG_FLAGS[name] + list(flags)))
 
 
 class CacheView:
@@ -591,102 +656,208 @@ class CacheView:
         return np.arange(len(self.cache), dtype=np.int64)
 
 
-def train_config1(workdir, device):
-    """Config 1 through ``deepards_tpu_torch.cli.train.main`` on a seeded
-    synthetic cohort, with its checkpoints and results checked."""
+def config_cohort(workdir, conf):
+    """The seeded synthetic cohort (10 patients x 400 breaths) of a
+    config: all_data for k-fold configs, shared by them, and the ``main``
+    holdout's two directories for a holdout config.  Returns (data path,
+    cohort file)."""
+    from deepards_tpu_torch.data.synthetic import generate_cohort
+
+    if conf.get("kfolds"):
+        cohort_dir, subdirs = os.path.join(workdir, "cohort"), ("all_data",)
+    else:
+        cohort_dir = os.path.join(workdir, "cohort_holdout")
+        subdirs = ("aim1_70_30_training", "aim1_70_30_testing")
+    cohort = os.path.join(cohort_dir, "cohort-description.csv")
+    if not os.path.exists(cohort):
+        cohort = generate_cohort(cohort_dir, n_patients=10,
+                                 n_breaths_per_patient=400, seed=SEED,
+                                 subdirs=subdirs)
+    return cohort_dir, cohort
+
+
+def train_config(workdir, device, name="config1"):
+    """Config ``name`` through ``deepards_tpu_torch.cli.train.main`` on a
+    seeded synthetic cohort, TRAIN_EPOCHS epochs of every fold, with its
+    checkpoints and results checked: a classifier's AUC meters and
+    patient records, a regressor's test MAE, MSE and r2."""
     from deepards_tpu_torch.cli.train import main as train_main
     from deepards_tpu_torch.data.dataset import ARDSRawDataset
-    from deepards_tpu_torch.data.synthetic import generate_cohort
     from deepards_tpu_torch.train import checkpoint as ckpt
 
-    cohort_dir = os.path.join(workdir, "cohort")
-    results_dir = os.path.join(workdir, "results")
-    models_dir = os.path.join(workdir, "models")
-    cohort = generate_cohort(cohort_dir, n_patients=10,
-                             n_breaths_per_patient=400, seed=SEED)
-    windows = len(ARDSRawDataset(cohort_dir, 1, cohort, S,
-                                 "unpadded_centered_sequences", kfold_num=0,
-                                 total_kfolds=5).cache)
+    conf = config_conf(name)
+    cohort_dir, cohort = config_cohort(workdir, conf)
+    results_dir = os.path.join(workdir, name + "_results")
+    models_dir = os.path.join(workdir, name + "_models")
+    kfolds = conf.get("kfolds")
+    windows = len(ARDSRawDataset(
+        cohort_dir, 1, cohort, conf.n_sub_batches, conf.dataset_type,
+        kfold_num=0 if kfolds else None, total_kfolds=kfolds).cache)
     t0 = time.perf_counter()
-    trainer = train_main(CONFIG1_FLAGS + [
+    trainer = train_main(CONFIG_FLAGS[name] + [
         "--epochs", str(TRAIN_EPOCHS), "--data-path", cohort_dir,
         "--cohort-file", cohort, "--results-dir", results_dir,
-        "--save-model", "config1.pt", "--saved-models-dir", models_dir,
+        "--save-model", name + ".pt", "--saved-models-dir", models_dir,
         "--device", device])
     seconds = time.perf_counter() - t0
     res = trainer.results
+    classifier = trainer.spec.kind == "classifier"
+    meters = ("test_auc",) if classifier else ("test_mae", "test_mse",
+                                               "test_r2")
     folds = {}
-    for fold in range(5):
+    for fold in range(kfolds or 1):
         losses = res.get_meter("loss", fold).values
-        aucs = res.reporting.meters.get("test_auc_fold_{}".format(fold))
+        tested = {m: res.reporting.meters.get("{}_fold_{}".format(m, fold))
+                  for m in meters}
         rows = [r for r in res.results if r["fold_num"] == fold]
-        path = os.path.join(models_dir, "config1-fold{}".format(fold))
+        path = os.path.join(models_dir, "{}-fold{}".format(name, fold)
+                            if kfolds else name)
         if not losses or not np.isfinite(losses).all():
-            raise AssertionError("fold {}: losses {}".format(fold, losses))
-        if aucs is None or len(aucs) != TRAIN_EPOCHS or not rows:
-            raise AssertionError("fold {}: no AUC meter or patient rows"
-                                 .format(fold))
+            raise AssertionError("{} fold {}: losses {}".format(
+                name, fold, losses))
+        bad = [m for m, meter in tested.items()
+               if meter is None or len(meter) != TRAIN_EPOCHS
+               or (not classifier and not np.isfinite(meter.values).all())]
+        if bad or (classifier and not rows):
+            raise AssertionError("{} fold {}: test meters {} or patient "
+                                 "rows missing".format(name, fold, bad))
         if ckpt.load_scaling(path) is None or "opt_state" not in \
                 ckpt.restore(path):
-            raise AssertionError("fold {}: checkpoint or its scaling "
-                                 "sidecar missing".format(fold))
+            raise AssertionError("{} fold {}: checkpoint or its scaling "
+                                 "sidecar missing".format(name, fold))
         folds[fold] = {"steps": len(losses), "last_loss": losses[-1],
-                       "auc": aucs.values, "patients": len(rows)}
+                       **{m: tested[m].values for m in meters}}
+        if classifier:
+            folds[fold]["patients"] = len(rows)
     names = os.listdir(results_dir)
-    for part in ("_patient_results.json", "_aggregate_results.json",
-                 "_maximal_results.json"):
+    parts = ("_patient_results.json", "_aggregate_results.json",
+             "_maximal_results.json") if classifier else ()
+    for part in parts:
         if not any(n.endswith(part) for n in names):
             raise AssertionError("results file *{} missing".format(part))
     if not any(n.startswith("meters_") for n in names) or not any(
             "_results_" in n for n in names):
         raise AssertionError("meters or results record missing")
+    shape = (conf.n_sub_batches, C, L)
     reduced = {"epochs": "10 -> {}".format(TRAIN_EPOCHS),
                "cohort": "synthetic, 10 patients x 400 breaths ({} windows "
-                         "of (20, 1, 224)) in place of ~100 patients x "
-                         "24 h".format(windows)}
-    print("reduced: " + json.dumps(reduced), flush=True)
+                         "of {}) in place of ~100 patients x 24 h".format(
+                             windows, shape)}
+    print("reduced: " + json.dumps({name: reduced}), flush=True)
     return trainer, models_dir, {
         "seconds": seconds, "windows": windows, "folds": folds,
         "results_files": sorted(names), "reduced": reduced,
         "compute_dtype": trainer.conf.get("compute_dtype")}
 
 
-def train_card_vs_cpu(device):
-    """Three steps of full-width cnn_linear/densenet18 at batch 16,
+def random_targets(rng, n, conf):
+    """Targets of ``n`` windows for config ``conf``: one-hot classes, or a
+    regressor's outputs as z-scored breath metadata, so that its losses
+    are O(1) as a classifier's are and the absolute limits read alike."""
+    from deepards_tpu_torch.models.registry import (
+        get_network_spec,
+        n_bm_features,
+    )
+
+    if get_network_spec(conf.network).kind == "regressor":
+        width = n_bm_features(conf.conf)
+        return rng.normal(size=(n, width)).astype(np.float32)
+    return np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)]
+
+
+class GradientsOnly:
+    """An optimizer for ``TrainState`` that leaves the params and their
+    gradients as the backward left them."""
+
+    def __init__(self, model):
+        self.params = list(model.parameters())
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        pass
+
+
+class Float32CountAdam:
+    """Adam as torch's ``capturable`` Adam, training's optimizer on the
+    card, computes it: the step count a float32 tensor, the bias
+    corrections float32 values computed from it (as optax computes them
+    too), the moments and the update in the params' dtype, in the same
+    order of operations."""
+
+    EPS = 1e-8  # torch's and optax's default
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), eps=EPS):
+        import torch
+
+        self.params = list(params)
+        self.lr, (self.beta1, self.beta2), self.eps = lr, betas, eps
+        self.exp_avg = [torch.zeros_like(p) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+        self.count = torch.zeros((), dtype=torch.float32)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        import torch
+
+        with torch.no_grad():
+            self.count += 1
+            # -lr / (1 - beta1 ** t) and sqrt(1 - beta2 ** t), in float32
+            step_size = torch.reciprocal(
+                (torch.pow(self.beta1, self.count) - 1) / self.lr)
+            root = (1 - torch.pow(self.beta2, self.count)).sqrt()
+            for p, m, v in zip(self.params, self.exp_avg, self.exp_avg_sq):
+                m.lerp_(p.grad, 1 - self.beta1)
+                v.mul_(self.beta2).addcmul_(p.grad, p.grad,
+                                            value=1 - self.beta2)
+                p.addcdiv_(m, (v.sqrt() / root + self.eps) / step_size)
+
+
+def train_card_vs_cpu(device, name="config1"):
+    """Three steps of config ``name``'s network at full width and batch,
     dropout off, on the device and on the CPU from the same params and
-    batches, in float32 and in float64: losses and params must agree
-    (``TRAIN_STEP_ATOL``); and the first conv's float32 gradient against
-    float64."""
+    batches, in float32 and in float64: losses and every param element
+    after each step, as ``TRAIN_STEP_ATOL`` says, with the controls it
+    names."""
     import torch
 
     from deepards_tpu_torch.data.pipeline import transform_batch
-    from deepards_tpu_torch.models.layers import bn_row_mask
-    from deepards_tpu_torch.models.registry import (
-        get_base_network,
-        get_network_spec,
-    )
-    from deepards_tpu_torch.train.losses import bce_with_logits
+    from deepards_tpu_torch.train.loop import Trainer
     from deepards_tpu_torch.train.steps import (
         TrainState,
         make_optimizer,
         make_train_step,
     )
 
+    conf = config_conf(name, "--device", "cpu")
+    s, batch = conf.n_sub_batches, conf.batch_size
     rng = np.random.default_rng(SEED + 2)
-    raw = make_windows(rng, 3 * BATCH)
+    raw = make_windows(rng, 3 * batch, s)
     mu = np.float32([raw.mean()])
     std = np.float32([raw.std()])
-    targets = np.eye(2, dtype=np.float32)[rng.integers(0, 2, 3 * BATCH)]
-    mask = np.ones(BATCH, np.float32)
+    targets = random_targets(rng, 3 * batch, conf)
+    mask = np.ones(batch, np.float32)
     mask[-1] = 0.0  # one pad row
-    conf = {"base_network": "densenet18", "network": "cnn_linear"}
-    init = get_network_spec("cnn_linear").build(
-        conf, get_base_network(conf), S).reset_parameters(
-            torch.Generator().manual_seed(SEED)).state_dict()
+    # the batch's rows in another order, the pad row last
+    permuted = np.append(rng.permutation(batch - 1), batch - 1)
+    trainer = Trainer(conf, verbose=False)
+    trainer.n_sub_batches = s
+    model = trainer.build_model().reset_parameters(
+        torch.Generator().manual_seed(SEED))
+    init = model.state_dict()
+    names = [n for n, _ in model.named_parameters()]
+    head_bias = names[-1]
+    by_gradient = [n for n in names if n.startswith(BY_GRADIENT[name])]
+    adam = conf.optimizer == "adam"
+    limit = TRAIN_STEP_ATOL["params"]
 
     def build(dev, dtype):
-        model = get_network_spec("cnn_linear").build(
-            conf, get_base_network(conf), S)
+        model = trainer.build_model()
         model.load_state_dict(init)
         return model.to(device=dev, dtype=dtype)
 
@@ -694,111 +865,234 @@ def train_card_vs_cpu(device):
         return [torch.from_numpy(x).to(device=dev, dtype=dtype)
                 for x in arrays]
 
-    def batch(k, dev, dtype):
-        sl = slice(k * BATCH, (k + 1) * BATCH)
-        return on(dev, dtype, raw[sl], targets[sl], mask)
+    def batch_of(k, dev, dtype, rows=slice(None)):
+        sl = slice(k * batch, (k + 1) * batch)
+        return on(dev, dtype, raw[sl][rows], targets[sl][rows], mask[rows])
 
-    def run(dev, dtype):
-        """Losses, params and the first conv's clamped gradient of each
-        step (the optimizer clamps the grads in place)."""
-        model = build(dev, dtype)
-        state = TrainState(model, make_optimizer(
-            model.parameters(), "sgd", learning_rate=0.001,
-            weight_decay=0.0001, clip_grad=True, clip_val=0.01),
-            torch.Generator(device=dev))
+    def steps(dev, dtype, model, optimizer):
         mu_d, std_d = on(dev, dtype, mu, std)
+        state = TrainState(model, optimizer, torch.Generator(device=dev))
         step, _ = make_train_step(
-            bce_with_logits,
+            trainer.loss_fn,
             transform=lambda d: transform_batch(d, mu_d, std_d),
-            dropout_active=False)
-        losses, clamped = [], []
-        conv = dict(model.named_parameters())[FIRST_CONV]
-        for k in range(3):
-            losses.append(float(step(state, *batch(k, dev, dtype))))
-            clamped.append(conv.grad.double().cpu())
-        return losses, {k: v.double().cpu()
-                        for k, v in model.state_dict().items()}, clamped
+            dropout_active=False, target_mode=trainer.spec.target_mode)
+        return state, step
 
-    def first_conv_grad(dev, dtype, k):
-        """The first conv's gradient (before the clamp) at the init."""
+    def run(dev, dtype, rows=slice(None), reference=True):
+        """Losses, and params after each step.  Training's optimizer; on
+        the CPU Adam is ``Float32CountAdam`` unless not ``reference``."""
         model = build(dev, dtype)
-        data, target, w = batch(k, dev, dtype)
-        mu_d, std_d = on(dev, dtype, mu, std)
-        with bn_row_mask(w.repeat_interleave(S)):
-            out = model(transform_batch(data, mu_d, std_d), True)
-        bce_with_logits(out, target, w).backward()
-        return dict(model.named_parameters())[FIRST_CONV].grad.double().cpu()
+        if adam and dev == "cpu" and reference:
+            optimizer = Float32CountAdam(model.parameters(),
+                                         conf.learning_rate)
+        else:
+            optimizer = make_optimizer(
+                model.parameters(), conf.optimizer,
+                learning_rate=conf.learning_rate,
+                weight_decay=conf.weight_decay,
+                clip_grad=bool(conf.get("clip_grad")),
+                clip_val=conf.clip_val)
+        state, step = steps(dev, dtype, model, optimizer)
+        losses, params = [], []
+        for k in range(3):
+            losses.append(float(step(state, *batch_of(k, dev, dtype, rows))))
+            # a copy: .to() of a float64 CPU tensor is the tensor itself,
+            # which the next step changes
+            params.append({n: v.detach().to("cpu", torch.float64, copy=True)
+                           for n, v in model.state_dict().items()})
+        return losses, params
 
-    exact = [first_conv_grad("cpu", torch.float64, k) for k in range(3)]
-    grad_err = {
-        side: [float((first_conv_grad(dev, torch.float32, k)
-                      - exact[k]).abs().max()) for k in range(3)]
-        for side, dev in (("cpu", "cpu"), ("device", device))}
-    controls = {
-        "zero_gradient": [float(g.abs().max()) for g in exact],
-        "next_batch": [float((exact[k] - exact[(k + 1) % 3]).abs().max())
-                       for k in range(3)]}
-    if min(min(v) for v in controls.values()) <= \
-            TRAIN_STEP_ATOL["first_conv_grad"]:
-        raise AssertionError("the first conv's gradient limit would pass a "
-                             "zero or a wrong gradient: {}".format(controls))
-    fields = {"atol": TRAIN_STEP_ATOL, "first_conv_grad_err": grad_err,
-              "first_conv_grad_controls": controls}
+    def gradients(dev, dtype, k):
+        """Every param's gradient (before any clamp) at the init for
+        batch k: the train step with an optimizer that only zeroes the
+        grads (torch's foreach Nesterov SGD adds its momentum into them
+        in place)."""
+        model = build(dev, dtype)
+        state, step = steps(dev, dtype, model, GradientsOnly(model))
+        step(state, *batch_of(k, dev, dtype))
+        return {n: p.grad.detach().to("cpu", torch.float64, copy=True)
+                for n, p in model.named_parameters()}
+
+    def over(got, want, held=None, skip=None):
+        """Per held tensor, the count of elements beyond the params limit
+        that ``skip`` does not mask; tensors with none left out."""
+        counts = {}
+        for n in held or want:
+            bad = (got[n] - want[n]).abs() > limit
+            if skip is not None and n in skip:
+                bad &= ~skip[n]
+            if bad.any():
+                counts[n] = int(bad.sum())
+        return counts
+
+    def largest(got, want):
+        errs = {n: float((got[n] - want[n]).abs().max()) for n in want}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    exact = [gradients("cpu", torch.float64, k) for k in range(3)]
+    single = {side: [gradients(dev, torch.float32, k) for k in range(3)]
+              for side, dev in (("cpu", "cpu"), ("device", device))}
     failed = []
-    if max(grad_err["device"]) > TRAIN_STEP_ATOL["first_conv_grad"]:
-        failed.append("first conv gradient vs float64 {}".format(
-            grad_err["device"]))
-    for name, dtype in (("float32", torch.float32),
-                        ("float64", torch.float64)):
-        cpu_losses, cpu_params, cpu_clamped = run("cpu", dtype)
-        dev_losses, dev_params, dev_clamped = run(device, dtype)
-        loss_err = float(np.max(np.abs(np.subtract(dev_losses, cpu_losses))))
-        errs = {k: float((dev_params[k] - cpu_params[k]).abs().max())
-                for k in cpu_params}
-        held = dict(errs)
-        if dtype == torch.float32:
-            held.pop(FIRST_CONV)
-        worst = max(held, key=held.get)
-        # what a card that left the kernel unchanged would miss by
-        moved = float((cpu_params[FIRST_CONV]
-                       - init[FIRST_CONV].double()).abs().max())
-        if dtype == torch.float64 and moved <= TRAIN_STEP_ATOL["params"]:
-            raise AssertionError("3 steps move the first conv by {}: the "
-                                 "float64 check could not fail".format(moved))
-        fields[name] = {
+    fields = {"atol": TRAIN_STEP_ATOL, "by_gradient": {}}
+    for n in by_gradient:
+        scale = max(float(g[n].abs().max()) for g in exact)
+        check = fields["by_gradient"][n] = {
+            "scale": scale,
+            "grad_err": {side: [float((g[k][n] - exact[k][n]).abs().max())
+                                / scale for k in range(3)]
+                         for side, g in single.items()},
+            "grad_controls": {
+                "zero_gradient": [float(g[n].abs().max()) / scale
+                                  for g in exact],
+                "next_batch": [float((exact[k][n] - exact[(k + 1) % 3][n])
+                                     .abs().max()) / scale
+                               for k in range(3)]}}
+        if min(min(v) for v in check["grad_controls"].values()) <= \
+                TRAIN_STEP_ATOL["grad"]:
+            raise AssertionError("{}'s gradient limit would pass a zero or "
+                                 "a wrong gradient: {}".format(
+                                     n, check["grad_controls"]))
+        if max(check["grad_err"]["device"]) > TRAIN_STEP_ATOL["grad"]:
+            failed.append("{} gradient vs float64 {}".format(
+                n, check["grad_err"]["device"]))
+    # Adam's first update, lr * g / (|g| + eps), of an element that
+    # gradients within 4x the CPU's own float32 error in its tensor of the
+    # float64 one could move by more than the limit
+    noise_level = None
+    if adam:
+        def first_update(g):
+            return conf.learning_rate * g / (g.abs() + Float32CountAdam.EPS)
+
+        noise_level = {}
+        for n in names:
+            error = 4 * (single["cpu"][0][n] - exact[0][n]).abs().max()
+            noise_level[n] = (first_update(exact[0][n] + error)
+                              - first_update(exact[0][n] - error)) > limit
+        fields["skipped_noise_level"] = {
+            n: int(m.sum()) for n, m in noise_level.items() if m.any()}
+    del single
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("float64", torch.float64)):
+        f32 = dtype == torch.float32
+        cpu_losses, cpu_steps = run("cpu", dtype)
+        dev_losses, dev_steps = run(device, dtype)
+        held = [n for n in cpu_steps[0] if not (f32 and n in by_gradient)]
+        held_steps = (1,) if f32 and adam else (1, 2, 3)
+        skip = noise_level if f32 and adam else None
+        loss_errs = np.abs(np.subtract(dev_losses, cpu_losses))
+        held_losses = 2 if f32 and adam else 3
+        loss_err = float(np.max(loss_errs[:held_losses]))
+        record = fields[dtype_name] = {
             "losses_device": dev_losses, "losses_cpu": cpu_losses,
-            "max_abs_loss": loss_err, "max_abs_params": held[worst],
-            "max_abs_params_at": worst,
-            "max_abs_first_conv": errs[FIRST_CONV],
-            "first_conv_moved_max_abs": moved,
-            "first_conv_clamped_grad_max_abs_by_step": [
-                float((d - c).abs().max())
-                for d, c in zip(dev_clamped, cpu_clamped)]}
-        if (loss_err > TRAIN_STEP_ATOL["loss"]
-                or held[worst] > TRAIN_STEP_ATOL["params"]):
-            failed.append("{}: loss {}, {} {}".format(
-                name, loss_err, worst, held[worst]))
+            "max_abs_loss_by_step": loss_errs.tolist(),
+            "losses_held": held_losses, "params_held_after_steps": held_steps}
+        if loss_err > TRAIN_STEP_ATOL["loss"]:
+            failed.append("{} loss {}".format(dtype_name, loss_err))
+
+        def compare(got_steps):
+            """After each step against the CPU's: the largest miss, and
+            the elements over the limit, held (per tensor) and all."""
+            out = []
+            for k, (got, want) in enumerate(zip(got_steps, cpu_steps)):
+                err, at = largest(got, want)
+                # Adam's noise level is its first step's
+                out.append({"max_abs": err, "max_abs_at": at,
+                            "over_atol_held": over(got, want, held,
+                                                   skip if k == 0 else None),
+                            "over_atol_all": sum(over(got, want).values())})
+            return out
+
+        for k, reading in enumerate(compare(dev_steps), 1):
+            record["after_step_{}".format(k)] = reading
+            if k in held_steps and reading["over_atol_held"]:
+                failed.append("{} after step {}: elements over {}: {}".format(
+                    dtype_name, k, limit, reading["over_atol_held"]))
+        # planted: the card's params after the last held step with the
+        # head's bias left at its init
+        last = held_steps[-1]
+        planted = dict(dev_steps[last - 1])
+        planted[head_bias] = init[head_bias].double()
+        caught = over(planted, cpu_steps[last - 1], held,
+                      skip if last == 1 else None)
+        record["planted"] = {"fault": head_bias + " not updated",
+                             "after_step": last,
+                             "over_atol": sum(caught.values())}
+        if not caught:
+            raise AssertionError("the {} check would pass {} left at its "
+                                 "init".format(dtype_name, head_bias))
+        if f32:
+            # the CPU against itself with the batch's rows permuted
+            perm_losses, perm_steps = run("cpu", dtype, rows=permuted)
+            spread = record["cpu_rows_permuted"] = {
+                "max_abs_loss_by_step": np.abs(np.subtract(
+                    perm_losses, cpu_losses)).tolist(),
+                "after_steps": compare(perm_steps)}
+            del perm_steps
+            if any(spread["after_steps"][k - 1]["over_atol_held"]
+                   for k in held_steps):
+                raise AssertionError("the float32 check fails the CPU "
+                                     "against itself: {}".format(spread))
+        else:
+            for n in by_gradient:
+                moved = float((cpu_steps[-1][n] - init[n].double())
+                              .abs().max())
+                if moved <= limit:
+                    raise AssertionError("3 steps move {} by {}: the float64 "
+                                         "check could not fail".format(
+                                             n, moved))
+            if adam:
+                # torch's own Adam on the CPU: float64 bias corrections
+                _, torch_steps = run("cpu", dtype, reference=False)
+                caught = over(torch_steps[-1], cpu_steps[-1])
+                record["planted_float64_bias_correction"] = {
+                    "after_step": 3, "over_atol": sum(caught.values())}
+                if not caught:
+                    raise AssertionError(
+                        "the float64 check would pass Adam with float64 "
+                        "bias corrections")
     if failed:
-        raise AssertionError("card vs CPU after 3 steps: " + "; ".join(failed))
+        raise AssertionError("{} card vs CPU after 3 steps: {}".format(
+            name, "; ".join(failed)))
     return fields
 
 
-def train_to_serve(trainer, models_dir, device):
-    """The last fold's checkpoint served: one /predict over HTTP, and its
-    deterministic logits against the trainer's final model on the same
-    normalized batch."""
+def softmax_probs(logits):
+    """Class probabilities of (n, 2) logits, or of (n, S, 2) per-breath
+    logits as the mean of each window's S softmaxes (what the server and
+    ``cli.predict`` answer)."""
     import torch
 
-    from deepards_tpu_torch.cli.serve import InferenceEngine, serve
+    probs = torch.softmax(torch.as_tensor(logits, dtype=torch.float64), -1)
+    return (probs.mean(dim=1) if probs.ndim == 3 else probs).numpy()
+
+
+def train_to_serve(trainer, models_dir, device, name="config1"):
+    """The last fold's checkpoint served: one /predict over HTTP, whose
+    probabilities must be the trainer's final model's on the same
+    normalized batch with the server's dropout seed, and the
+    deterministic logits of the served model against the trainer's."""
+    import torch
+
+    from deepards_tpu_torch.cli.serve import (
+        DROPOUT_SEED,
+        InferenceEngine,
+        serve,
+    )
     from deepards_tpu_torch.train import checkpoint as ckpt
 
-    path = os.path.join(models_dir, "config1-fold4")
+    conf = trainer.conf
+    path = os.path.join(models_dir, "{}-fold4".format(name))
     model = trainer.final_state.model
-    engine = InferenceEngine(path, n_sub_batches=S, batch_size=BATCH,
+    engine = InferenceEngine(path, network=conf.network,
+                             base_network=conf.base_network,
+                             n_sub_batches=conf.n_sub_batches,
+                             batch_size=conf.batch_size,
                              scaling=ckpt.load_scaling(path),
                              bn_scope=model.bn_scope, device=device)
     engine.warm()
-    windows = make_windows(np.random.default_rng(SEED + 4), BATCH)
+    windows = make_windows(np.random.default_rng(SEED + 4), conf.batch_size,
+                           conf.n_sub_batches)
     server = serve(engine, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -813,86 +1107,103 @@ def train_to_serve(trainer, models_dir, device):
     if thread.is_alive():
         raise RuntimeError("server thread did not stop")
     probs = np.stack([resp["prob_other"], resp["prob_ards"]], axis=1)
-    if probs.shape != (BATCH, 2) or not np.isfinite(probs).all():
+    if probs.shape != (conf.batch_size, 2) or not np.isfinite(probs).all():
         raise AssertionError("bad served probabilities")
     x = torch.from_numpy(windows).to(engine.device)
     x = (x - engine._mu) / engine._std
+
+    def logits(out):
+        return out[0] if isinstance(out, tuple) else out
+
     with torch.no_grad():
-        got = engine.model(x, True)
-        want = model(x, True)
+        got = logits(engine.model(x, True))
+        want = logits(model(x, True))
+        served = logits(model(x, engine.deterministic, torch.Generator(
+            device=engine.device).manual_seed(DROPOUT_SEED)))
     err = float((got - want).abs().max())
-    if err > TRAIN_SERVE_ATOL:
+    prob_err = float(np.abs(probs - softmax_probs(served.cpu())).max())
+    if err > TRAIN_SERVE_ATOL or prob_err > TRAIN_SERVE_ATOL:
         raise AssertionError("served logits differ from the trainer's "
-                             "model by {}".format(err))
+                             "model by {}, served probabilities by {}"
+                             .format(err, prob_err))
     return {"checkpoint": os.path.basename(path), "max_abs_logit": err,
-            "atol": TRAIN_SERVE_ATOL, "bn_scope": model.bn_scope}
+            "max_abs_served_prob": prob_err, "atol": TRAIN_SERVE_ATOL,
+            "bn_scope": model.bn_scope,
+            "served_deterministic": engine.deterministic}
 
 
-def random_cache(rng, n):
-    """A dataset stand-in over ``n`` random windows of config 1's shape."""
+def random_cache(rng, n, conf):
+    """A dataset stand-in over ``n`` random windows of config ``conf``'s
+    (S, 1, 224) and targets."""
     from deepards_tpu_torch.data.windowing import WindowCache
 
+    s = conf.n_sub_batches
+    data = rng.normal(size=(n, s, C, L)).astype(np.float32)
+    target = random_targets(rng, n, conf)
     return CacheView(WindowCache(
-        data=rng.normal(size=(n, S, C, L)).astype(np.float32),
-        target=np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)],
-        hours=np.zeros((n, S), np.float32),
+        data=data, target=target, hours=np.zeros((n, s), np.float32),
         patient_idx=np.zeros(n, np.int32), patients=["synthetic"]))
 
 
-def config1_fold(workdir, device, graphs, ds, dropout=True, *flags):
-    """A ``Trainer`` of config 1's flags (and ``flags``) with fold 0's
-    state built without a cohort, and a ``StepRunner`` of its steps over
-    unit scaling for batches of ``ds``: CUDA-graph replays with
+def config_fold(name, workdir, device, graphs, ds, dropout=True, *flags):
+    """A ``Trainer`` of config ``name``'s flags (and ``flags``) with fold
+    0's state built without a cohort, and a ``StepRunner`` of its steps
+    over unit scaling for batches of ``ds``: CUDA-graph replays with
     ``graphs`` (the trainer's own choice on the card), else eager."""
     import torch
 
-    from deepards_tpu_torch.cli.train import build_parser
-    from deepards_tpu_torch.config.config import Configuration
     from deepards_tpu_torch.data.pipeline import transform_batch
     from deepards_tpu_torch.train.loop import Trainer
     from deepards_tpu_torch.train.steps import StepRunner, make_train_step
 
-    conf = Configuration(build_parser().parse_args(CONFIG1_FLAGS + [
-        "--device", device,
-        "--results-dir", os.path.join(workdir, "measure")] + list(flags)))
+    conf = config_conf(name, "--device", device, "--results-dir",
+                       os.path.join(workdir, "measure"), *flags)
     trainer = Trainer(conf, verbose=False)
-    trainer.n_sub_batches = S
+    trainer.n_sub_batches = ds.cache.data.shape[1]
     state = trainer.new_state(0)
     zero = torch.zeros(1, device=trainer.device)
     one = torch.ones(1, device=trainer.device)
     train_step, eval_step = make_train_step(
         trainer.loss_fn, transform=lambda d: transform_batch(d, zero, one),
-        compute_dtype=trainer.compute_dtype, dropout_active=dropout)
+        compute_dtype=trainer.compute_dtype, dropout_active=dropout,
+        eval_dropout_active=dropout and not trainer.spec.eval_dropout_off,
+        target_mode=trainer.spec.target_mode)
     runner = StepRunner(state, train_step, eval_step,
-                        (BATCH,) + ds.cache.data.shape[1:],
+                        (conf.batch_size,) + ds.cache.data.shape[1:],
+                        target_width=ds.cache.target.shape[1],
                         graphed=graphs and trainer.device.type == "cuda")
     return trainer, runner
 
 
-def train_numbers(workdir, device):
-    """Step times, profile, memory and epoch rate of config 1's step (full
-    width, batch 16, bf16, dropout on) on the device-cache path, over a
-    cache of random windows built directly: the steps run eagerly
-    (``eager``) and as CUDA-graph replays (``graphed``).  A step is the
-    runner's train call over a batch already in its buffers; the epoch
-    also gathers each batch on the card.  The build time and the peak
-    memory cover the fold's state and the runner (the graphed one's
-    warm-up, captures and pools)."""
+def train_numbers(workdir, device, name="config1",
+                  modes=(("eager", False), ("graphed", True))):
+    """Step times, profile, memory and epoch rate of config ``name``'s
+    step (full width, its batch, bf16, dropout on) on the device-cache
+    path, over a cache of MEASURE_WINDOWS random windows built directly:
+    the steps run eagerly (``eager``) and as CUDA-graph replays
+    (``graphed``), as ``modes`` asks.  A step is the runner's train call
+    over a batch already in its buffers; the epoch also gathers each batch
+    on the card.  The build time and the peak memory cover the fold's
+    state and the runner (the graphed one's warm-up, captures and
+    pools)."""
     import torch
 
-    ds = random_cache(np.random.default_rng(SEED + 3), MEASURE_WINDOWS)
+    conf = config_conf(name)
+    batch = conf.batch_size
+    ds = random_cache(np.random.default_rng(SEED + 3), MEASURE_WINDOWS,
+                      conf)
     n = MEASURE_WINDOWS
     out = {}
-    for name, graphs in (("eager", False), ("graphed", True)):
+    for mode, graphs in modes:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         baseline = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        trainer, runner = config1_fold(workdir, device, graphs, ds)
+        trainer, runner = config_fold(name, workdir, device, graphs, ds)
         torch.cuda.synchronize()
         build_seconds = time.perf_counter() - t0
         dev = trainer._get_device_cache(ds)
-        ids = torch.arange(BATCH, device=trainer.device)
+        ids = torch.arange(batch, device=trainer.device)
         for key, table in dev.items():
             torch.index_select(table, 0, ids, out=runner.inputs[key])
         runner.inputs["mask"].fill_(1.0)
@@ -912,10 +1223,10 @@ def train_numbers(workdir, device):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         losses = trainer.results.get_meter("loss", 0).values
-        if len(losses) != n // BATCH or not np.isfinite(losses).all():
-            raise AssertionError("{} device-cache epoch: {} losses".format(
-                name, len(losses)))
-        out[name] = {
+        if len(losses) != n // batch or not np.isfinite(losses).all():
+            raise AssertionError("{} {} device-cache epoch: {} losses".format(
+                name, mode, len(losses)))
+        out[mode] = {
             "train_step_ms": train_ms, "eval_step_ms": eval_ms,
             "train_back_to_back_ms": train_b2b_ms,
             "eval_back_to_back_ms": eval_b2b_ms,
@@ -939,14 +1250,15 @@ def train_numbers(workdir, device):
             "runner_build_seconds": build_seconds,
             "epoch_windows": n, "epoch_seconds": seconds,
             "windows_per_s": n / seconds,
-            "epoch_ms_per_step": seconds * 1e3 / (n // BATCH),
+            "epoch_ms_per_step": seconds * 1e3 / (n // batch),
         }
-        print("numbers {}: {} ms a step, {} ms on the device, idle {}, "
+        print("numbers {} {}: {} ms a step, {} ms on the device, idle {}, "
               "{} windows/s".format(
-                  name, train_ms, out[name]["device_ms_per_step"],
-                  out[name]["device_idle_share"], n / seconds), flush=True)
+                  name, mode, train_ms, out[mode]["device_ms_per_step"],
+                  out[mode]["device_idle_share"], n / seconds), flush=True)
         del runner, trainer
     out["compute_dtype"] = "bfloat16"
+    out["batch"] = batch
     return out
 
 
@@ -954,22 +1266,25 @@ GRAPH_STEPS = 8  # graph_vs_eager: device-cache steps from one fold state
 GRAPH_ATOL = 1e-6
 
 
-def phase_graph_vs_eager(workdir, device="cuda"):
-    """GRAPH_STEPS device-cache steps of config 1 from one fold state,
-    replayed as CUDA graphs and run eagerly, with cuDNN's deterministic
-    algorithms (its default backward sums in another order from run to
-    run), then an eval epoch over the same windows: float32 with dropout
-    off, losses, every param and the eval logits within GRAPH_ATOL;
-    bfloat16 with dropout on, losses and eval logits within GRAPH_ATOL and
-    the dropout generator in the same state after the steps."""
+def graph_vs_eager(workdir, device="cuda", name="config1"):
+    """GRAPH_STEPS device-cache steps of config ``name`` from one fold
+    state, replayed as CUDA graphs and run eagerly, with cuDNN's
+    deterministic algorithms (its default backward sums in another order
+    from run to run), then an eval epoch over the same windows: float32
+    with dropout off, losses, every param and the eval outputs within
+    GRAPH_ATOL; bfloat16 with dropout on, losses and eval outputs within
+    GRAPH_ATOL and the dropout generator in the same state after the
+    steps.  Returns (fields, failures)."""
     import torch
 
     from deepards_tpu_torch.train.loop import _epoch_order
 
+    conf = config_conf(name)
+    batch, s = conf.batch_size, conf.n_sub_batches
     rng = np.random.default_rng(SEED + 6)
-    ds = random_cache(rng, GRAPH_STEPS * BATCH)
-    ds.cache.data[:] = make_windows(rng, GRAPH_STEPS * BATCH)
-    ids, masks = _epoch_order(rng.permutation(GRAPH_STEPS * BATCH), BATCH)
+    ds = random_cache(rng, GRAPH_STEPS * batch, conf)
+    ds.cache.data[:] = make_windows(rng, GRAPH_STEPS * batch, s)
+    ids, masks = _epoch_order(rng.permutation(GRAPH_STEPS * batch), batch)
     masks[-1, -3:] = 0.0  # pad rows in the last batch
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -979,39 +1294,38 @@ def phase_graph_vs_eager(workdir, device="cuda"):
         for dtype, dropout in (("float32", False), ("bfloat16", True)):
             runs = {}
             for graphs in (False, True):
-                trainer, runner = config1_fold(
-                    workdir, device, graphs, ds, dropout,
+                trainer, runner = config_fold(
+                    name, workdir, device, graphs, ds, dropout,
                     "--compute-dtype", dtype)
                 state = runner.state
                 losses, _ = trainer._device_steps(runner, ds, ids, masks,
                                                   True)
                 # then an eval epoch over the same windows (dropout as in
-                # training)
-                _, logits = trainer._device_steps(runner, ds, ids, masks,
-                                                  False)
+                # the trainer's eval)
+                _, outs = trainer._device_steps(runner, ds, ids, masks,
+                                                False)
                 runs[graphs] = (
                     losses.cpu(),
                     {k: v.detach().cpu()
                      for k, v in state.model.state_dict().items()},
-                    state.generator.get_state(), state.step, logits.cpu())
+                    state.generator.get_state(), state.step, outs.cpu())
             e_loss, e_params, e_rng, e_step, e_out = runs[False]
             g_loss, g_params, g_rng, g_step, g_out = runs[True]
             loss_err = float((g_loss - e_loss).abs().max())
             param_err = max(float((g_params[k] - e_params[k]).abs().max())
                             for k in e_params)
-            logit_err = float((g_out - e_out).abs().max())
+            out_err = float((g_out - e_out).abs().max())
             same_rng = bool(torch.equal(g_rng, e_rng))
             fields[dtype] = {
                 "dropout": dropout, "losses_graphed": g_loss.tolist(),
                 "losses_eager": e_loss.tolist(), "max_abs_loss": loss_err,
                 "max_abs_params": param_err, "max_abs_eval_logits":
-                logit_err, "generator_state_equal": same_rng,
+                out_err, "generator_state_equal": same_rng,
                 "steps": [e_step, g_step]}
-            if loss_err > GRAPH_ATOL or logit_err > GRAPH_ATOL or (
+            if loss_err > GRAPH_ATOL or out_err > GRAPH_ATOL or (
                     not dropout and param_err > GRAPH_ATOL):
-                failed.append("{}: loss {}, params {}, eval logits {}"
-                              .format(dtype, loss_err, param_err,
-                                      logit_err))
+                failed.append("{}: loss {}, params {}, eval outputs {}"
+                              .format(dtype, loss_err, param_err, out_err))
             if dropout and not same_rng:
                 failed.append("{}: generator states differ".format(dtype))
             if e_step != g_step or not torch.isfinite(g_loss).all():
@@ -1019,6 +1333,12 @@ def phase_graph_vs_eager(workdir, device="cuda"):
                                                           g_step))
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    return fields, failed
+
+
+def phase_graph_vs_eager(workdir, device="cuda"):
+    """``graph_vs_eager`` of config 1."""
+    fields, failed = graph_vs_eager(workdir, device)
     emit("graph_vs_eager", **fields)
     if failed:
         raise AssertionError("graphed vs eager: " + "; ".join(failed))
@@ -1041,7 +1361,6 @@ def phase_config1_surface(workdir, device="cuda"):
     ``--with-fft``."""
     import torch
 
-    from deepards_tpu_torch.cli.predict import main as predict_main
     from deepards_tpu_torch.cli.train import main as train_main
     from deepards_tpu_torch.data.synthetic import generate_cohort
 
@@ -1071,7 +1390,7 @@ def phase_config1_surface(workdir, device="cuda"):
         fields["seconds"]["resume"] = time.perf_counter() - t0
         fields["resume"] = compare_resumed(full, resumed)
         fields["predict"] = predict_vs_eval(
-            base, path, predict_main, train_main)
+            base, path("surface_models", "surface-fold0"), path("surface"))
         fields["metadata"] = surface_run(train_main, workdir, device, [
             "--dataset-type",
             "padded_breath_by_breath_with_flow_time_features"])
@@ -1109,34 +1428,40 @@ def compare_resumed(full, resumed):
             "final_step": [full.final_state.step, resumed.final_state.step]}
 
 
-def predict_vs_eval(base, path, predict_main, train_main):
-    """cli.predict on the final checkpoint against the trainer's eval of
-    the same checkpoint."""
-    checkpoint = path("surface_models", "surface-fold0")
+def predict_vs_eval(base, checkpoint, prefix):
+    """``cli.predict`` on ``checkpoint`` (training flags ``base``) against
+    the trainer's eval of the same checkpoint: the same windows, and
+    probabilities within PREDICT_ATOL (a per-breath head's as the mean of
+    its windows' softmaxes); for a per-window head also the same votes.
+    ``prefix``: where its outputs go."""
+    from deepards_tpu_torch.cli.predict import main as predict_main
+    from deepards_tpu_torch.cli.train import main as train_main
+
     t0 = time.perf_counter()
     rows, votes = predict_main([
-        "--checkpoint", checkpoint, "-o", path("predictions.csv"),
-        "--votes-output", path("votes.json")] + base)
+        "--checkpoint", checkpoint, "-o", prefix + "_predictions.csv",
+        "--votes-output", prefix + "_votes.json"] + base)
     seconds = time.perf_counter() - t0
     evaluated = train_main(base + [
-        "--results-dir", path("eval_results"), "--load-checkpoint",
+        "--results-dir", prefix + "_eval_results", "--load-checkpoint",
         checkpoint, "--no-train", "--epochs", "1"])
-    logits = evaluated.last_eval["logits"].astype(np.float64)
-    want = np.exp(logits - logits.max(axis=1, keepdims=True))
-    want /= want.sum(axis=1, keepdims=True)
+    logits = evaluated.last_eval["logits"]
+    want = softmax_probs(logits)
     got = np.array([[r["prob_other"], r["prob_ards"]] for r in rows])
     if [r["window_index"] for r in rows] != \
             evaluated.last_eval["index"].tolist():
         raise AssertionError("predict and the eval visit other windows")
     err = float(np.abs(got - want).max())
-    records = {r["patient"]: r for r in evaluated.results.results}
-    votes_equal = len(records) == len(votes) and all(
-        v["pred_frac"] == records[v["patient"]]["pred_frac"]
-        and (v["pred_frac"] == 0.5
-             or v["prediction"] == records[v["patient"]]["prediction"])
-        for v in votes)
-    if err > PREDICT_ATOL or not votes_equal or not os.path.exists(
-            path("predictions.csv")):
+    votes_equal = None
+    if logits.ndim == 2:  # per-breath votes count S predictions a window
+        records = {r["patient"]: r for r in evaluated.results.results}
+        votes_equal = len(records) == len(votes) and all(
+            v["pred_frac"] == records[v["patient"]]["pred_frac"]
+            and (v["pred_frac"] == 0.5
+                 or v["prediction"] == records[v["patient"]]["prediction"])
+            for v in votes)
+    if err > PREDICT_ATOL or votes_equal is False or not os.path.exists(
+            prefix + "_predictions.csv"):
         raise AssertionError("predict vs the trainer's eval: max abs {}, "
                              "votes equal {}".format(err, votes_equal))
     return {"windows": len(rows), "patients": len(votes),
@@ -1171,7 +1496,7 @@ def phase_train(workdir, smi, device="cuda"):
     import torch
 
     t0 = time.perf_counter()
-    trainer, models_dir, run = train_config1(workdir, device)
+    trainer, models_dir, run = train_config(workdir, device)
     fields = {"card": smi, "config1": run,
               "card_vs_cpu": train_card_vs_cpu(device),
               "train_to_serve": train_to_serve(trainer, models_dir, device),
@@ -1181,6 +1506,40 @@ def phase_train(workdir, smi, device="cuda"):
         fields["numbers"] = train_numbers(workdir, device)
     fields["train_phase_seconds"] = time.perf_counter() - t0
     emit("train", **fields)
+
+
+def phase_config(workdir, name, device="cuda"):
+    """Benchmark config ``name`` (2, 3 or 4) on the device: trained
+    through the CLI (every fold, TRAIN_EPOCHS epochs), 3 float32 steps at
+    full width held against the CPU (and in float64), GRAPH_STEPS graphed
+    device-cache steps held to eager ones, for a classifier a trained
+    checkpoint served and ``cli.predict`` on one, both held to the
+    trainer's model and eval, and the bf16 graphed step timed over a
+    MEASURE_WINDOWS-window device cache."""
+    t0 = time.perf_counter()
+    trainer, models_dir, run = train_config(workdir, device, name)
+    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
+              "flags": CONFIG_FLAGS[name], "run": run,
+              "card_vs_cpu": train_card_vs_cpu(device, name)}
+    fields["graph_vs_eager"], failed = graph_vs_eager(workdir, device, name)
+    if trainer.spec.kind == "classifier":
+        fields["train_to_serve"] = train_to_serve(trainer, models_dir,
+                                                  device, name)
+        cohort_dir, cohort = config_cohort(workdir, trainer.conf)
+        fields["predict"] = predict_vs_eval(
+            CONFIG_FLAGS[name] + [
+                "--data-path", cohort_dir, "--cohort-file", cohort,
+                "--only-fold", "0", "--device", device],
+            os.path.join(models_dir, name + "-fold0"),
+            os.path.join(workdir, name))
+    if device == "cuda":
+        fields["numbers"] = train_numbers(workdir, device, name,
+                                          modes=(("graphed", True),))
+    fields["phase_seconds"] = time.perf_counter() - t0
+    emit(name, **fields)
+    if failed:
+        raise AssertionError("{} graphed vs eager: {}".format(
+            name, "; ".join(failed)))
 
 
 # the DTW heterogeneity sweep: the reference hetero runner's cohort of 80
@@ -1445,19 +1804,28 @@ def main():
     if launches == 0:
         raise AssertionError("the main path never launched the dtw kernel")
 
-    # the training paths run no hand-written kernel: counts from 0 just
-    # before them, read just after
+    # the training paths run no hand-written kernel: each one's counts from
+    # 0 just before it, read just after, and required to stay 0
+    by_path = {"serve": launches}
     dtw_ops.launches = 0
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         phase_train(work, smi)
         phase_graph_vs_eager(work)
         phase_config1_surface(work)
-    emit("train_path_kernel_launches", dtw=dtw_ops.launches)
+        by_path["config1"] = dtw_ops.launches
+        for name in ("config2", "config3", "config4"):
+            dtw_ops.launches = 0
+            phase_config(work, name)
+            by_path[name] = dtw_ops.launches
+    training = {name: by_path[name] for name in CONFIG_FLAGS}
+    emit("train_path_kernel_launches", dtw=training)
+    if any(training.values()):
+        raise AssertionError("a training path launched the dtw kernel: {}"
+                             .format(training))
 
     # the DTW heterogeneity paths: the sweep's counts from 0 just before
     # it (inside the phase, whose checks launch the kernel too), the CLI
     # chain's just before it, each read just after
-    by_path = {"serve": launches}
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         by_path["dtw_similarity"] = phase_dtw_similarity(
             work, per_cell=dtw_stats["strip_fp32_per_cell"])

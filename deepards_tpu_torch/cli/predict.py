@@ -12,6 +12,10 @@ as JSON records (patient, pred_frac, n_windows, prediction, where
 pred_frac >= 0.5 votes ARDS), the JAX package's columns and fields, with
 ``csv`` and ``json``.
 
+A per-breath head's (cnn_lstm) window probabilities are the mean of its
+S windows' softmax, as in the JAX package.  A regressor is refused: the
+rows are class probabilities.
+
 The dropout masks come from the checkpoint's generator, so the
 probabilities are those of the trainer's eval of the same checkpoint
 (``cli.train --load-checkpoint <it> --no-train``).  The batch transforms
@@ -41,6 +45,10 @@ def predict(conf, checkpoint_path, batch_size=16, device=None):
     """(rows, votes): one dict per test window of ``WINDOW_COLUMNS``, and
     one per patient (sorted by patient) with its vote."""
     trainer = make_trainer(conf, device=device, verbose=False)
+    if trainer.spec.kind != "classifier":
+        raise ValueError("{} is a {}: predict writes class "
+                         "probabilities".format(conf.network,
+                                                trainer.spec.kind))
     train_ds, test_ds = trainer.get_base_datasets()
     fold = conf.get("only_fold") or 0
     if conf.get("kfolds"):
@@ -50,7 +58,8 @@ def predict(conf, checkpoint_path, batch_size=16, device=None):
     _, eval_step = make_train_step(
         trainer.loss_fn, transform=BatchPipeline(train_ds, trainer.device),
         compute_dtype=trainer.compute_dtype,
-        eval_dropout_active=not trainer.spec.eval_dropout_off)
+        eval_dropout_active=not trainer.spec.eval_dropout_off,
+        target_mode=trainer.spec.target_mode)
     idxs = test_ds.current_indices()
     truth = test_ds.get_ground_truth()  # in the order of idxs
     rows = []
@@ -58,7 +67,10 @@ def predict(conf, checkpoint_path, batch_size=16, device=None):
         chunk = idxs[start:start + batch_size]
         batch = trainer.device_batch(test_ds.gather(chunk), batch_size)
         _, logits = eval_step(state, **batch)
-        probs = torch.softmax(logits, dim=-1)[:len(chunk)].cpu().numpy()
+        probs = torch.softmax(logits, dim=-1)[:len(chunk)]
+        if probs.ndim == 3:  # a per-breath head: the mean of its windows
+            probs = probs.mean(dim=1)
+        probs = probs.cpu().numpy()
         for i, widx in enumerate(chunk):
             rows.append({
                 "window_index": int(widx),

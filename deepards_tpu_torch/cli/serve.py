@@ -10,11 +10,17 @@ Request body: JSON ``{"data": [[..window (S,C,L)..], ...],
 "patients": ["a", ...]}`` (patients optional; votes grouped by it) or a
 raw .npz upload (array under key "data", optional "patients").
 
-Every dispatch is padded to the warm batch size.  The serving model uses
-per-sequence normalization statistics (bn_scope='sequence') so the zero
-pad rows cannot change real windows.  Dropout stays active at inference,
-as in the JAX package, with its generator reseeded to the same seed at
-every forward, so the same request always gets the same answer.  Input
+It serves any classifier of the registry; a per-breath head's window
+probabilities are the mean of its S windows' softmax, as the JAX server's
+are.  A regressor is not served: the answer is a softmax, which means
+nothing for a regressor.  Every dispatch is padded to the warm batch
+size.  The serving model uses per-sequence normalization statistics
+(bn_scope='sequence') so the zero pad rows cannot change real windows.
+Dropout stays active at inference, as in the JAX package, with its
+generator reseeded to the same seed at every forward, so the same request
+always gets the same answer; a network whose trainer evaluates with
+dropout off (cnn_lstm) is served with dropout off, as it is evaluated,
+where the JAX server keeps it on.  Input
 scaling factors come from --scaling-pickle (a saved ``.npz`` dataset: its
 first fold's factors) or else from the checkpoint's .scaling.json
 sidecar, unless --allow-unscaled explicitly opts out.
@@ -54,9 +60,17 @@ class InferenceEngine:
         # would otherwise share normalization statistics with real
         # windows, and a request would score differently by its size.
         # The parameters do not depend on the scope.
+        # the registry's other keys (initial_planes, hidden units) at their
+        # defaults, as the JAX server builds its networks
         conf = {"base_network": base_network, "network": network,
                 "bn_scope": bn_scope}
         spec = get_network_spec(network)
+        if spec.kind != "classifier":
+            raise ValueError(
+                "{} is a {}: the server answers with class probabilities, "
+                "a softmax that means nothing for it".format(
+                    network, spec.kind))
+        self.deterministic = spec.eval_dropout_off
         model = spec.build(conf, get_base_network(conf), n_sub_batches)
         model.load_state_dict(ckpt.restore(checkpoint)["params"])
         self.model = model.to(self.device)
@@ -82,8 +96,13 @@ class InferenceEngine:
     def _forward(self, data):
         x = (data - self._mu) / self._std
         self._generator.manual_seed(DROPOUT_SEED)
-        out = self.model(x, False, self._generator)
-        return torch.softmax(out, dim=-1)
+        out = self.model(x, self.deterministic, self._generator)
+        if isinstance(out, tuple):
+            out = out[0]  # a stateful head's (logits, carry)
+        probs = torch.softmax(out, dim=-1)
+        if probs.ndim == 3:  # a per-breath head: the mean of its windows
+            probs = probs.mean(dim=1)
+        return probs
 
     def warm(self, channels=1, length=224):
         x = torch.zeros(

@@ -97,6 +97,17 @@ def roc_auc(y_true, scores):
     return float((rank_sum - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
 
 
+def r2_score(y_true, y_pred):
+    """Coefficient of determination over all outputs together, in
+    float64: 1 - SS_res / SS_tot, 0.0 when the targets do not vary
+    (reference: deepards_tpu/train/loop.py:67-72)."""
+    y_true = np.asarray(y_true, np.float64)
+    y_pred = np.asarray(y_pred, np.float64)
+    ss_res = ((y_true - y_pred) ** 2).sum()
+    ss_tot = ((y_true - y_true.mean(axis=0)) ** 2).sum()
+    return float(1.0 - ss_res / ss_tot) if ss_tot else 0.0
+
+
 def aggregate_stats(patient_results, fold_num, epoch_num):
     """Patient-level stats per patho, as rows of ``STAT_COLUMNS``
     (reference: deepards/metrics.py:317-351)."""
@@ -171,6 +182,12 @@ class DeepARDSResults:
 
     def update_loss(self, fold_num, loss):
         self.update_meter("loss", fold_num, loss)
+
+    def update_accuracy(self, fold_num, accuracy):
+        self.update_meter("test_accuracy", fold_num, accuracy)
+
+    def update_r2(self, fold_num, r2):
+        self.update_meter("test_r2", fold_num, r2)
 
     # -- patient predictions --------------------------------------------------
 

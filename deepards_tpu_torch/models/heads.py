@@ -1,4 +1,4 @@
-"""Composite networks: CNN backbone + classification head.
+"""Composite networks: CNN backbone + classification or regression head.
 
 Counterpart of ``deepards_tpu/models/heads.py``.  Every head folds
 (batch, windows) into one (B*S)-row batch and runs the backbone once.
@@ -6,11 +6,10 @@ With ``metadata_features`` > 0 a head concatenates the window's (S,
 metadata_features) metadata, flattened, to its features before the
 Dense, as the JAX heads do; with 0 it ignores metadata.
 """
-import math
-
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from deepards_tpu_torch.models.layers import dense_init, promoted_linear
 
 
 def _window_features(breath_block, x, bn_scope, deterministic, generator):
@@ -27,6 +26,11 @@ def _window_features(breath_block, x, bn_scope, deterministic, generator):
     return feats.reshape(b, s, -1)
 
 
+def _check_bn_scope(bn_scope):
+    if bn_scope not in ("batch", "sequence"):
+        raise ValueError("bn_scope must be 'batch' or 'sequence'")
+
+
 class CNNLinearNetwork(nn.Module):
     """Flatten all window features (and the metadata) -> one Linear ->
     (B, 2) logits."""
@@ -34,8 +38,7 @@ class CNNLinearNetwork(nn.Module):
     def __init__(self, breath_block, n_sub_batches, bn_scope="batch",
                  metadata_features=0):
         super().__init__()
-        if bn_scope not in ("batch", "sequence"):
-            raise ValueError("bn_scope must be 'batch' or 'sequence'")
+        _check_bn_scope(bn_scope)
         self.breath_block = breath_block
         self.bn_scope = bn_scope
         self.metadata_features = metadata_features
@@ -44,14 +47,9 @@ class CNNLinearNetwork(nn.Module):
             2)
 
     def reset_parameters(self, generator=None):
-        """Backbone init, then the head: kernel normal(0, 1/sqrt(fan_in))
-        (the scale of flax's default lecun_normal, untruncated), bias 0."""
+        """Backbone init, then the head (``dense_init``)."""
         self.breath_block.reset_parameters(generator)
-        w = self.head.weight
-        with torch.no_grad():
-            w.copy_(torch.randn(w.shape, generator=generator)
-                    / math.sqrt(w.shape[1]))
-            self.head.bias.zero_()
+        dense_init(self.head, generator)
         return self
 
     def forward(self, x, deterministic=False, generator=None, metadata=None):
@@ -64,6 +62,59 @@ class CNNLinearNetwork(nn.Module):
         # promoted type, as flax's Dense does for mixed inputs
         meta = metadata.reshape(flat.shape[0], -1)
         dtype = torch.promote_types(flat.dtype, meta.dtype)
-        flat = torch.cat([flat.to(dtype), meta.to(dtype)], dim=-1)
-        return F.linear(flat, self.head.weight.to(dtype),
-                        self.head.bias.to(dtype))
+        return promoted_linear(
+            torch.cat([flat.to(dtype), meta.to(dtype)], dim=-1), self.head)
+
+
+class CNNRegressor(nn.Module):
+    """Flatten all window features -> one Linear -> (B, n_outputs): the
+    breath-metadata pretraining regressor (9 outputs for
+    ``padded_breath_by_breath_with_full_bm_target``)."""
+
+    def __init__(self, breath_block, n_sub_batches, n_outputs=9,
+                 bn_scope="batch"):
+        super().__init__()
+        _check_bn_scope(bn_scope)
+        self.breath_block = breath_block
+        self.bn_scope = bn_scope
+        self.head = nn.Linear(n_sub_batches * breath_block.n_out_filters,
+                              n_outputs)
+
+    def reset_parameters(self, generator=None):
+        self.breath_block.reset_parameters(generator)
+        dense_init(self.head, generator)
+        return self
+
+    def forward(self, x, deterministic=False, generator=None, metadata=None):
+        feats = _window_features(
+            self.breath_block, x, self.bn_scope, deterministic, generator)
+        return self.head(feats.reshape(feats.shape[0], -1))
+
+
+class MetadataOnlyNetwork(nn.Module):
+    """Linear(9, 32) -> Linear(32, 16) -> Linear(16, 2) over the mean of
+    the windows' metadata, with no activation between them: the JAX
+    package's (and its reference's) chain.  It has no backbone and reads
+    no waveform."""
+
+    def __init__(self):
+        super().__init__()
+        # over the 9 flow-time features of
+        # padded_breath_by_breath_with_flow_time_features
+        self.layers = nn.ModuleList([
+            nn.Linear(9, 32), nn.Linear(32, 16), nn.Linear(16, 2)])
+
+    def reset_parameters(self, generator=None):
+        for layer in self.layers:
+            dense_init(layer, generator)
+        return self
+
+    def forward(self, x, deterministic=False, generator=None, metadata=None):
+        if metadata is None:
+            raise ValueError(
+                "metadata_only reads the metadata input: dataset_type "
+                "padded_breath_by_breath_with_flow_time_features")
+        h = metadata.mean(dim=1)  # (B, S, 9) -> (B, 9)
+        for layer in self.layers:
+            h = promoted_linear(h, layer)
+        return h

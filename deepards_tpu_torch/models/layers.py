@@ -64,6 +64,28 @@ def conv_kernel_init(weight, generator=None):
     return weight
 
 
+def dense_init(linear, generator=None):
+    """A Dense layer's init as the JAX package's flax Dense has it: kernel
+    normal(0, 1/sqrt(fan_in)) (the scale of flax's default lecun_normal,
+    untruncated), bias 0, drawn from ``generator``."""
+    w = linear.weight
+    with torch.no_grad():
+        w.copy_(torch.randn(w.shape, generator=generator)
+                / math.sqrt(w.shape[1]))
+        if linear.bias is not None:
+            linear.bias.zero_()
+    return linear
+
+
+def promoted_linear(x, linear):
+    """``linear`` over ``x`` in the promoted type of the two, as flax's
+    Dense computes a float32 input under bfloat16 params (and the
+    reverse)."""
+    dtype = torch.promote_types(x.dtype, linear.weight.dtype)
+    bias = None if linear.bias is None else linear.bias.to(dtype)
+    return F.linear(x.to(dtype), linear.weight.to(dtype), bias)
+
+
 class BatchStatNorm(nn.Module):
     """BatchNorm over (N, C, L) that always uses current-batch statistics.
 

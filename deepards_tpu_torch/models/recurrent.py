@@ -1,0 +1,167 @@
+"""CNN + LSTM networks over the windows of a sample.
+
+Counterpart of ``deepards_tpu/models/recurrent.py`` (``CNNLSTMNetwork``,
+``CNNLSTMDoubleLinearNetwork``).  The backbone gives each window's
+features, as one (B*S)-row call; ``LSTM`` runs over the S windows.
+
+``LSTM`` computes what flax's ``OptimizedLSTMCell`` under ``nn.RNN``
+computes, with its parameters: per gate (i, f, g, o) an input kernel
+without bias and a hidden kernel with a bias, held as ``nn.Linear``s in
+``input`` and ``hidden``.  The input projection of all S windows is one
+matmul; then S steps of ``h @ W_h + b``.  Precision follows flax's
+``promote_dtype``: under bfloat16 compute the input projection is bfloat16
+x bfloat16, while the carry starts as float32 zeros, so the recurrent
+projection, the gates, the carry and the outputs are float32.
+"""
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepards_tpu_torch.models.heads import (
+    _check_bn_scope,
+    _window_features,
+)
+from deepards_tpu_torch.models.layers import dense_init, promoted_linear
+
+GATES = ("i", "f", "g", "o")
+
+
+class LSTM(nn.Module):
+    """(B, S, F) -> ((c, h), (B, S, H) outputs), flax's gate layout."""
+
+    def __init__(self, in_features, hidden):
+        super().__init__()
+        self.hidden_size = hidden
+        self.input = nn.ModuleDict(
+            {g: nn.Linear(in_features, hidden, bias=False) for g in GATES})
+        self.hidden = nn.ModuleDict(
+            {g: nn.Linear(hidden, hidden) for g in GATES})
+
+    def reset_parameters(self, generator=None):
+        """flax's init: input kernels lecun normal, recurrent kernels
+        orthogonal, biases 0, drawn from ``generator``."""
+        for g in GATES:
+            dense_init(self.input[g], generator)
+            nn.init.orthogonal_(self.hidden[g].weight, generator=generator)
+            nn.init.zeros_(self.hidden[g].bias)
+        return self
+
+    def zero_carry(self, batch, device=None):
+        """A float32 zero carry (c, h), as flax's ``initialize_carry``."""
+        zeros = torch.zeros(batch, self.hidden_size, device=device)
+        return zeros, zeros
+
+    def forward(self, x, carry=None):
+        w_i = torch.cat([self.input[g].weight for g in GATES])
+        w_h = torch.cat([self.hidden[g].weight for g in GATES])
+        b_h = torch.cat([self.hidden[g].bias for g in GATES])
+        in_dtype = torch.promote_types(x.dtype, w_i.dtype)
+        xi = F.linear(x.to(in_dtype), w_i.to(in_dtype))  # (B, S, 4H)
+        if carry is None:
+            carry = self.zero_carry(x.shape[0], x.device)
+        # the carry at least float32, as the weights promote it (float64
+        # for a float64 model)
+        h_dtype = torch.promote_types(carry[1].dtype, w_h.dtype)
+        c, h = (t.to(h_dtype) for t in carry)
+        w_h, b_h = w_h.to(h_dtype), b_h.to(h_dtype)
+        outs = []
+        for s in range(x.shape[1]):
+            gates = F.linear(h, w_h, b_h) + xi[:, s]
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outs.append(h)
+        return (c, h), torch.stack(outs, dim=1)
+
+
+class _CNNLSTMBase(nn.Module):
+    """Window features, the metadata appended to them (or, with
+    ``bm_to_linear``, to the LSTM's outputs), the LSTM over the windows."""
+
+    def __init__(self, breath_block, lstm_hidden_units=16,
+                 metadata_features=0, bm_to_linear=False, bn_scope="batch"):
+        super().__init__()
+        _check_bn_scope(bn_scope)
+        self.breath_block = breath_block
+        self.bn_scope = bn_scope
+        self.metadata_features = metadata_features
+        self.bm_to_linear = bm_to_linear
+        lstm_in = breath_block.n_out_filters
+        self.hidden_size = lstm_hidden_units
+        if not bm_to_linear:
+            lstm_in += metadata_features
+            self.hidden_size += metadata_features
+        self.lstm = LSTM(lstm_in, self.hidden_size)
+        # what the Dense after the LSTM reads a window
+        self.out_features = self.hidden_size + (
+            metadata_features if bm_to_linear else 0)
+
+    def _reset_backbone_and_lstm(self, generator):
+        self.breath_block.reset_parameters(generator)
+        self.lstm.reset_parameters(generator)
+
+    def _lstm_outputs(self, x, deterministic, generator, metadata, carry):
+        feats = _window_features(
+            self.breath_block, x, self.bn_scope, deterministic, generator)
+        if self.metadata_features and metadata is not None and \
+                not self.bm_to_linear:
+            feats = _concat(feats, metadata)
+        carry, out = self.lstm(feats, carry)
+        if self.bm_to_linear and metadata is not None:
+            out = _concat(out, metadata)
+        return carry, out
+
+
+def _concat(a, b):
+    """``a`` and ``b`` joined on the last axis in their promoted type, as
+    ``jnp.concatenate`` does."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return torch.cat([a.to(dtype), b.to(dtype)], dim=-1)
+
+
+class CNNLSTMNetwork(_CNNLSTMBase):
+    """Per-window logits (B, S, 2) and the LSTM's final carry: ``forward``
+    returns ``(logits, (c, h))`` and takes an optional ``carry`` to start
+    from (the stateful unshuffled fold's), as the JAX network does."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.head = nn.Linear(self.out_features, 2)
+
+    def reset_parameters(self, generator=None):
+        self._reset_backbone_and_lstm(generator)
+        dense_init(self.head, generator)
+        return self
+
+    def forward(self, x, deterministic=False, generator=None, metadata=None,
+                carry=None):
+        carry, out = self._lstm_outputs(x, deterministic, generator,
+                                        metadata, carry)
+        return promoted_linear(out, self.head), carry
+
+
+class CNNLSTMDoubleLinearNetwork(_CNNLSTMBase):
+    """The LSTM's outputs of all S windows flattened -> Linear(hidden) ->
+    Linear(2): (B, 2) logits."""
+
+    def __init__(self, breath_block, n_sub_batches, lstm_hidden_units=16,
+                 metadata_features=0, bm_to_linear=False, bn_scope="batch"):
+        super().__init__(breath_block, lstm_hidden_units, metadata_features,
+                         bm_to_linear, bn_scope)
+        self.layers = nn.ModuleList([
+            nn.Linear(n_sub_batches * self.out_features, self.hidden_size),
+            nn.Linear(self.hidden_size, 2)])
+
+    def reset_parameters(self, generator=None):
+        self._reset_backbone_and_lstm(generator)
+        for layer in self.layers:
+            dense_init(layer, generator)
+        return self
+
+    def forward(self, x, deterministic=False, generator=None, metadata=None):
+        _, h = self._lstm_outputs(x, deterministic, generator, metadata,
+                                  None)
+        h = h.reshape(h.shape[0], -1)
+        for layer in self.layers:
+            h = promoted_linear(h, layer)
+        return h

@@ -1,17 +1,30 @@
 """Network registries: base backbones and composite-network specs.
 
 Counterpart of ``deepards_tpu/models/registry.py``, holding the entries
-the port has so far: the densenet backbones and ``cnn_linear``.  ``conf``
-is a mapping of configuration keys (``base_network``, ``bn_scope``).
+the port has so far: the densenet and resnet backbones, ``cnn_linear``,
+``cnn_regressor``, ``metadata_only``, ``cnn_lstm`` and
+``cnn_lstm_double_linear``.  The JAX package's other entries raise
+``NotImplementedError``.  ``conf`` is a mapping of configuration keys
+(``base_network``, ``bn_scope``, ``initial_planes``, ...).
 """
 from dataclasses import dataclass
 from typing import Callable
 
-from deepards_tpu_torch.models import densenet1d, heads
+from deepards_tpu_torch.models import densenet1d, heads, recurrent, resnet1d
 
 
 def _densenet_ctor(name):
     return lambda conf, in_channels: getattr(densenet1d, name)(
+        in_channels=in_channels)
+
+
+def _resnet_ctor(name):
+    """ResNet backbones read the resnet options of the configuration
+    (reference: train_ards_detector.py:389-394)."""
+    return lambda conf, in_channels: getattr(resnet1d, name)(
+        initial_planes=conf.get("initial_planes", 64) or 64,
+        first_pool_type=conf.get("resnet_first_pool_type", "max") or "max",
+        double_conv_first=bool(conf.get("resnet_double_conv")),
         in_channels=in_channels)
 
 
@@ -20,12 +33,55 @@ BASE_NETWORKS = {
     for name in ("densenet18", "densenet121", "densenet161", "densenet169",
                  "densenet201")
 }
+BASE_NETWORKS.update({
+    name: _resnet_ctor(name)
+    for name in ("resnet18", "resnet34", "resnet50", "resnet101",
+                 "resnet152")
+})
+
+# the JAX package's entries that the port does not have yet, and what they
+# are (ROADMAP.md, Queue 1)
+NOT_PORTED = {
+    **dict.fromkeys(
+        ("vgg11", "vgg11_bn", "vgg13", "vgg13_bn", "senet18", "senet154",
+         "se_resnet18", "se_resnet50", "se_resnet101", "se_resnet152",
+         "se_resnext50_32x4d", "se_resnext101_32x4d", "unet", "basic_cnn_ae",
+         "densenet18_2d", "densenet121_2d", "densenet18_2x1d"),
+        "base network"),
+    **dict.fromkeys(
+        ("cnn_double_linear", "cnn_single_breath_linear",
+         "cnn_linear_to_mean", "cnn_linear_compr_to_rf", "autoencoder",
+         "siamese_pretrained"), "head"),
+    **dict.fromkeys(
+        ("lstm_only", "lstm_only_with_packing", "double_lstm"),
+        "recurrent network"),
+    "cnn_transformer": "transformer network",
+    **dict.fromkeys(
+        ("cnn_to_nested_rnn", "cnn_to_nested_lstm",
+         "cnn_to_nested_transformer"), "nested network (nested trainer)"),
+    **dict.fromkeys(("protopnet", "protopnet_2d"),
+                    "network of the protopnet trainer"),
+    **dict.fromkeys(
+        ("siamese_cnn_linear", "siamese_cnn_lstm",
+         "siamese_cnn_transformer"), "network of the siamese trainer"),
+    **dict.fromkeys(("retinanet_2d", "retinanet_2x1d", "faster_rcnn_2d"),
+                    "network of the detector trainer"),
+    **dict.fromkeys(("cnn_linear_2d", "cnn_linear_2x1d"), "2D network"),
+}
+
+
+def _not_ported(name):
+    return NotImplementedError(
+        "{} ({}) is not ported to deepards_tpu_torch yet".format(
+            name, NOT_PORTED[name]))
 
 
 def get_base_network(conf, in_channels=1):
     """The backbone ``conf`` names, over ``in_channels`` input channels
     (the window cache's C)."""
     name = conf["base_network"]
+    if name in NOT_PORTED:
+        raise _not_ported(name)
     if name not in BASE_NETWORKS:
         raise ValueError(
             "unknown base network: {} (have: {})".format(
@@ -42,17 +98,36 @@ class NetworkSpec:
     name: str
     # (conf, base_network, n_sub_batches[, metadata_features]) -> module
     build: Callable
-    target_mode: str = "per_sample"  # per_sample|per_breath|regression|autoencoder
-    kind: str = "classifier"  # classifier|regressor|autoencoder|siamese|detector
+    target_mode: str = "per_sample"  # per_sample|per_breath|regression
+    kind: str = "classifier"  # classifier|regressor
     expand_obs_idx: bool = False  # per-breath heads repeat an index S times
+    uses_metadata: bool = False  # reads the metadata input
+    stateful_lstm: bool = False  # carries its LSTM state when unshuffled
     eval_dropout_off: bool = False  # eval runs with dropout off
-    trainer: str = "standard"  # standard|protopnet|siamese
 
 
 def _bn_scope(conf):
     """'sequence' gives each sample's windows their own normalization
     statistics; the default 'batch' normalizes all B*S windows together."""
     return conf.get("bn_scope") or "batch"
+
+
+def n_bm_features(conf):
+    """Regression outputs by dataset type
+    (reference: train_ards_detector.py:99-104)."""
+    dt = conf.get("dataset_type")
+    if dt == "padded_breath_by_breath_with_limited_bm_target":
+        return 3
+    if dt == "padded_breath_by_breath_with_experimental_bm_target":
+        return 7
+    return 9
+
+
+def _lstm_options(conf, m):
+    return dict(
+        lstm_hidden_units=conf.get("time_series_hidden_units", 16) or 16,
+        metadata_features=m, bm_to_linear=bool(conf.get("bm_to_linear")),
+        bn_scope=_bn_scope(conf))
 
 
 NETWORK_MAP = {
@@ -62,11 +137,44 @@ NETWORK_MAP = {
             breath_block=bb, n_sub_batches=s, metadata_features=m,
             bn_scope=_bn_scope(conf),
         ),
+        uses_metadata=True,
+    ),
+    "cnn_regressor": NetworkSpec(
+        "cnn_regressor",
+        lambda conf, bb, s, m=0: heads.CNNRegressor(
+            breath_block=bb, n_sub_batches=s,
+            n_outputs=n_bm_features(conf), bn_scope=_bn_scope(conf),
+        ),
+        target_mode="regression",
+        kind="regressor",
+    ),
+    "metadata_only": NetworkSpec(
+        "metadata_only",
+        lambda conf, bb, s, m=0: heads.MetadataOnlyNetwork(),
+        uses_metadata=True,
+    ),
+    "cnn_lstm": NetworkSpec(
+        "cnn_lstm",
+        lambda conf, bb, s, m=0: recurrent.CNNLSTMNetwork(
+            breath_block=bb, **_lstm_options(conf, m)),
+        target_mode="per_breath",
+        expand_obs_idx=True,
+        uses_metadata=True,
+        stateful_lstm=True,
+        eval_dropout_off=True,
+    ),
+    "cnn_lstm_double_linear": NetworkSpec(
+        "cnn_lstm_double_linear",
+        lambda conf, bb, s, m=0: recurrent.CNNLSTMDoubleLinearNetwork(
+            breath_block=bb, n_sub_batches=s, **_lstm_options(conf, m)),
+        uses_metadata=True,
     ),
 }
 
 
 def get_network_spec(name):
+    if name in NOT_PORTED:
+        raise _not_ported(name)
     if name not in NETWORK_MAP:
         raise ValueError(
             "unknown network: {} (have: {})".format(name, sorted(NETWORK_MAP))

@@ -35,7 +35,7 @@ from deepards_tpu_torch.data import augment
 from deepards_tpu_torch.data.dataset import ARDSRawDataset
 from deepards_tpu_torch.data.pipeline import BatchPipeline
 from deepards_tpu_torch.device import resolve_device
-from deepards_tpu_torch.eval.metrics import DeepARDSResults
+from deepards_tpu_torch.eval.metrics import DeepARDSResults, r2_score
 from deepards_tpu_torch.models.registry import (
     get_base_network,
     get_network_spec,
@@ -51,17 +51,6 @@ from deepards_tpu_torch.train.steps import (
     make_train_step,
 )
 
-# networks of the JAX package whose trainers the port does not have yet
-_OTHER_TRAINERS = {
-    "protopnet": "protopnet", "protopnet_2d": "protopnet",
-    "siamese_cnn_linear": "siamese", "siamese_cnn_lstm": "siamese",
-    "siamese_cnn_transformer": "siamese",
-    "retinanet_2d": "detector", "retinanet_2x1d": "detector",
-    "faster_rcnn_2d": "detector",
-    "cnn_to_nested_rnn": "nested", "cnn_to_nested_lstm": "nested",
-    "cnn_to_nested_transformer": "nested",
-}
-
 # options of the JAX trainer not ported yet: setting one raises
 _UNPORTED_OPTIONS = (
     "plot_untiled_disease_evol", "plot_tiled_disease_evol",
@@ -74,15 +63,18 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": None, None: None}
 
 def make_trainer(conf, **kwargs):
     """The trainer a configuration asks for: the standard ``Trainer``, or
-    ``NotImplementedError`` for those the port does not have yet."""
+    ``NotImplementedError`` for what the port does not have yet
+    (``parallel_folds``; the stateful unshuffled fold of an LSTM head,
+    ``deepards_tpu/train/loop.py:437-441,754-987``; the networks of the
+    other trainers, which ``get_network_spec`` refuses)."""
     if conf.get("parallel_folds"):
         raise NotImplementedError(
             "parallel_folds is not ported to deepards_tpu_torch yet")
-    other = _OTHER_TRAINERS.get(conf.network)
-    if other:
+    if conf.get("unshuffled") and get_network_spec(
+            conf.network).stateful_lstm:
         raise NotImplementedError(
-            "the {} trainer ({}) is not ported to deepards_tpu_torch "
-            "yet".format(other, conf.network))
+            "the stateful --unshuffled fold of {} is not ported to "
+            "deepards_tpu_torch yet".format(conf.network))
     return Trainer(conf, **kwargs)
 
 
@@ -113,6 +105,25 @@ def _epoch_order(idx, batch_size):
     masks[n:] = 0.0
     ids = np.resize(idx, steps * batch_size)
     return ids.reshape(steps, batch_size), masks.reshape(steps, batch_size)
+
+
+def _store(outs, i, out, steps):
+    """Write step ``i``'s eval output into ``outs`` ((steps,) + its
+    shape, allocated at the first step on its device)."""
+    if outs is None:
+        outs = out.new_empty((steps,) + tuple(out.shape))
+    outs[i] = out
+    return outs
+
+
+def _backbone(model, option):
+    """``model``'s backbone, or ValueError naming ``option`` for a network
+    that has none (``metadata_only``)."""
+    backbone = getattr(model, "breath_block", None)
+    if backbone is None:
+        raise ValueError("{}: {} has no base network".format(
+            option, type(model).__name__))
+    return backbone
 
 
 def _chunks(iterable, size):
@@ -161,12 +172,17 @@ class Trainer:
         self.seed = conf.get("seed", 42) or 42
         self.host_rng = np.random.default_rng(self.seed)
         self.compute_dtype = _DTYPES[conf.get("compute_dtype", "bfloat16")]
-        self.loss_fn = loss_lib.get_classification_loss(
-            conf.get("loss_func", "bce"),
-            valpha=conf.get("valpha", float("inf")) or float("inf"),
-            conf_beta=conf.get("conf_beta", 1.0) or 1.0,
-        )
-        self.meta_features = metadata_features_for(conf.conf)
+        if self.spec.kind == "regressor":
+            self.loss_fn = loss_lib.mse
+        else:
+            self.loss_fn = loss_lib.get_classification_loss(
+                conf.get("loss_func", "bce"),
+                valpha=conf.get("valpha", float("inf")) or float("inf"),
+                conf_beta=conf.get("conf_beta", 1.0) or 1.0,
+            )
+        # the metadata input is gathered for the heads that read it
+        self.meta_features = (metadata_features_for(conf.conf)
+                              if self.spec.uses_metadata else 0)
         self.in_channels = 1  # the window cache's C, set with the datasets
         self._dev_caches = {}
         self._deferred = None
@@ -297,7 +313,7 @@ class Trainer:
         self.init_model(model, fold_num)
         model.to(self.device)
         if conf.get("freeze_base_network"):
-            model.breath_block.requires_grad_(False)
+            _backbone(model, "--freeze-base-network").requires_grad_(False)
         optimizer = make_optimizer(
             [p for p in model.parameters() if p.requires_grad],
             optimizer=conf.get("optimizer", "sgd"),
@@ -326,6 +342,7 @@ class Trainer:
         """Splice the backbone (``breath_block.*``) of a port checkpoint, or
         of an ``.npz`` of the JAX package's flat params, into the fold's
         model (reference: train_ards_detector.py:383-388)."""
+        _backbone(state.model, "--load-base-network")
         params = checkpoint.restore(path)["params"]
         backbone = {k: v for k, v in params.items()
                     if k.startswith("breath_block.")}
@@ -379,6 +396,7 @@ class Trainer:
             meta_shape = (batch_size,) + cache.meta.shape[1:]
         return StepRunner(state, train_step, eval_step,
                           (batch_size,) + cache.data.shape[1:],
+                          target_width=cache.target.shape[1],
                           meta_shape=meta_shape,
                           graphed=self.device.type == "cuda")
 
@@ -396,6 +414,7 @@ class Trainer:
             transform=BatchPipeline(train_dataset, self.device),
             compute_dtype=self.compute_dtype,
             eval_dropout_active=not self.spec.eval_dropout_off,
+            target_mode=self.spec.target_mode,
         )
         runner = self.make_runner(state, train_dataset, train_step,
                                   eval_step)
@@ -492,15 +511,14 @@ class Trainer:
     def _device_steps(self, runner, dataset, ids, masks, train):
         """One step per row of ``ids`` over the device cache, each batch
         gathered into the runner's buffers on the device.  Returns the
-        (steps,) losses and, for eval, the (steps, B, 2) logits, on the
+        (steps,) losses and, for eval, the (steps, B, ...) outputs, on the
         device."""
         dev = self._get_device_cache(dataset)
         ids = torch.from_numpy(ids).to(self.device)
         masks = torch.from_numpy(masks).to(self.device)
-        steps, batch_size = ids.shape
+        steps = ids.shape[0]
         losses = torch.empty(steps, device=self.device)
-        outs = None if train else torch.empty(
-            steps, batch_size, 2, device=self.device)
+        outs = None
         inputs = runner.inputs
         for i in range(steps):
             for key, table in dev.items():
@@ -509,7 +527,8 @@ class Trainer:
             if train:
                 losses[i] = runner.train()
             else:
-                losses[i], outs[i] = runner.eval()
+                losses[i], out = runner.eval()
+                outs = _store(outs, i, out, steps)
         return losses, outs
 
     def _run_train_epoch_device_cache(self, runner, dataset, fold_num,
@@ -660,30 +679,42 @@ class Trainer:
         else:
             loader = EpochLoader(dataset, batch_size, shuffle=False)
             losses = torch.empty(len(loader), device=self.device)
-            outs = torch.empty(len(loader), batch_size, 2,
-                               device=self.device)
+            outs = None
             batches = PrefetchLoader(
                 loader, map_fn=lambda b: self.device_batch(b, batch_size))
             for i, batch in enumerate(batches):
                 for key, value in batch.items():
                     runner.inputs[key].copy_(value)
-                losses[i], outs[i] = runner.eval()
+                losses[i], out = runner.eval()
+                outs = _store(outs, i, out, len(loader))
         # both paths visit idx in order; the pad rows end the last batch
         self._defer(lambda: self._record_eval(
             losses.cpu().numpy(),
-            outs.reshape(-1, 2)[:len(idx)].cpu().numpy(), idx, dataset,
+            outs.flatten(0, 1)[:len(idx)].cpu().numpy(), idx, dataset,
             fold_num, epoch_num))
 
     def _record_eval(self, losses, outs, idx, dataset, fold_num, epoch_num):
-        """Test losses per step, then the per-window predictions
-        (``outs`` (n, 2) logits of the windows ``idx``)."""
+        """Test losses per step, then the per-window outputs ``outs`` of
+        the windows ``idx``: a classifier's (n, 2) logits, or (n, S, 2)
+        for a per-breath head, whose every window index then repeats S
+        times; a regressor's (n, T) predictions
+        (reference: deepards_tpu/train/loop.py:1250-1271)."""
         for loss in losses:
             self.results.update_meter("test_loss", fold_num, float(loss))
             self.results.update_epoch_meter("test_loss", epoch_num,
                                             float(loss))
         self.last_eval = {"index": idx, "logits": outs}
-        self.record_classifier_results(outs.argmax(axis=-1), idx, dataset,
-                                       fold_num, epoch_num)
+        if self.spec.kind == "regressor":
+            self.record_regressor_results(outs, dataset.cache.target[idx],
+                                          fold_num)
+            return
+        preds = outs.argmax(axis=-1)
+        pred_idx = idx
+        if self.spec.expand_obs_idx:
+            pred_idx = np.repeat(idx, preds.shape[1])
+            preds = preds.reshape(-1)
+        self.record_classifier_results(preds, pred_idx, dataset, fold_num,
+                                       epoch_num)
 
     def record_classifier_results(self, preds, pred_idx, dataset, fold_num,
                                   epoch_num):
@@ -701,8 +732,19 @@ class Trainer:
         self.results.save_predictions_by_hour(
             truth, pred_idx, preds, seq_hours, epoch_num, fold_num)
 
+    def record_regressor_results(self, preds, targets, fold_num):
+        """Test MAE, MSE and r2 of a fold's predictions
+        (reference: train_ards_detector.py:661-679)."""
+        self.results.update_meter(
+            "test_mae", fold_num, float(np.abs(preds - targets).mean()))
+        self.results.update_meter(
+            "test_mse", fold_num, float(((preds - targets) ** 2).mean()))
+        self.results.update_r2(fold_num, r2_score(targets, preds))
+
     def perform_post_modeling_actions(self):
-        self.results.aggregate_classification_results(verbose=self.verbose)
+        if self.spec.kind == "classifier":
+            self.results.aggregate_classification_results(
+                verbose=self.verbose)
         self.results.save_all()
 
     # -- checkpointing --------------------------------------------------------

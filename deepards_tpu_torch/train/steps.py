@@ -92,11 +92,19 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     dropout_active: bool = True,
     eval_dropout_active: Optional[bool] = None,
+    target_mode: str = "per_sample",
 ):
     """(train_step, eval_step), each called as ``(state, data, target,
-    mask, meta=None)`` with raw (B, S, C, L) data, (B, 2) targets, the
+    mask, meta=None)`` with raw (B, S, C, L) data, (B, T) targets, the
     (B,) row mask and, for a head with a metadata input, (B, S, M)
-    metadata, all on the model's device; the model gives (B, 2) logits.
+    metadata, all on the model's device.
+
+    target_mode: how the model's output meets the target
+    (``deepards_tpu/train/steps.py:196-197``): 'per_sample', (B, 2)
+    logits against (B, 2) targets; 'per_breath', (B, S, 2) logits against
+    the target repeated over the S windows; 'regression', (B, T)
+    predictions against (B, T) targets.  A stateful head's
+    ``(logits, carry)`` output is reduced to its logits.
 
     transform: the normalization applied to the raw data on the device.
     compute_dtype: params and data are cast to it for the forward and the
@@ -110,6 +118,8 @@ def make_train_step(
     Neither step reads a value back to the host, so both can be captured
     in a CUDA graph.
     """
+    if target_mode not in ("per_sample", "per_breath", "regression"):
+        raise ValueError("unknown target_mode: {}".format(target_mode))
     if eval_dropout_active is None:
         eval_dropout_active = dropout_active
 
@@ -124,8 +134,7 @@ def make_train_step(
 
             def apply(x):
                 return torch.func.functional_call(
-                    model, params,
-                    (x, not active, state.generator, meta)).float()
+                    model, params, (x, not active, state.generator, meta))
         else:
             def apply(x):
                 return model(x, not active, state.generator, meta)
@@ -134,6 +143,12 @@ def make_train_step(
         rows = mask[:, None].expand(-1, data.shape[1]).reshape(-1)
         with bn_row_mask(rows):
             out = apply(data)
+        if isinstance(out, tuple):
+            out = out[0]  # a stateful head's (logits, carry)
+        if compute_dtype is not None:
+            out = out.float()
+        if target_mode == "per_breath":
+            target = target[:, None, :].expand(-1, out.shape[1], -1)
         return loss_fn(out, target, mask), out
 
     def train_step(state, data, target, mask, meta=None):
@@ -155,12 +170,13 @@ def make_train_step(
 class StepRunner:
     """A fold's train and eval steps over static input buffers.
 
-    ``inputs`` holds one batch: ``data`` (B, S, C, L), ``target`` (B, 2),
-    ``mask`` (B,) and, with ``meta_shape``, ``meta``.  The caller fills
-    them in place (``copy_``, ``index_select(out=...)``) and then calls
-    ``train()`` (the loss) or ``eval()`` (the loss and the (B, 2)
-    logits).  What these return may be the graph's static outputs: copy
-    it out before the next call.
+    ``inputs`` holds one batch: ``data`` (B, S, C, L), ``target`` (B,
+    ``target_width``), ``mask`` (B,) and, with ``meta_shape``, ``meta``.
+    The caller fills them in place (``copy_``, ``index_select(out=...)``)
+    and then calls ``train()`` (the loss) or ``eval()`` (the loss and the
+    model's output: (B, 2) logits, (B, S, 2) for a per-breath head, (B,
+    T) for a regressor).  What these return may be the graph's static
+    outputs: copy it out before the next call.
 
     graphed: capture each step as a ``torch.cuda.CUDAGraph``.  A few
     eager steps on a side stream come first, as capture asks, with
@@ -179,7 +195,7 @@ class StepRunner:
     WARMUP_STEPS = 3  # eager steps before a capture
 
     def __init__(self, state, train_step, eval_step, data_shape,
-                 meta_shape=None, graphed=False):
+                 target_width=2, meta_shape=None, graphed=False):
         self.state = state
         self._train_step = train_step
         self._eval_step = eval_step
@@ -187,7 +203,7 @@ class StepRunner:
         batch = data_shape[0]
         self.inputs = {
             "data": torch.zeros(data_shape, device=device),
-            "target": torch.zeros(batch, 2, device=device),
+            "target": torch.zeros(batch, target_width, device=device),
             "mask": torch.ones(batch, device=device),
         }
         if meta_shape is not None:

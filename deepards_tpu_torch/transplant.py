@@ -1,6 +1,7 @@
 """flax parameter tree -> the port's ``state_dict``.
 
-The JAX package's densenet/cnn_linear params are a nested dict
+The JAX package's params are a nested dict of flax module names, e.g.
+cnn_linear over densenet18
 
     {"breath_block": {"Conv1d_0": {"Conv_0": {"kernel"}}, "BatchStatNorm_0",
                       "DenseLayer_0".., "Transition_0".., "BatchStatNorm_1"},
@@ -10,7 +11,14 @@ The JAX package's densenet/cnn_linear params are a nested dict
 nested dicts of arrays, or flat with "a/b/c" keys as
 ``flax.traverse_util.flatten_dict(params, sep="/")`` gives and as
 ``np.savez`` of that flat dict stores it.  A bare backbone tree (no
-"breath_block" level) maps onto a ``DenseNet1D``.
+"breath_block" level) maps onto the backbone itself.
+
+Names are mapped by one table per block family (``Family``): a module's
+fixed names, and its indexed kinds, where ``Kind_k`` is entry k of a list.
+The backbone's family is ResNet when the tree has a ``BasicBlock_i`` or
+``Bottleneck_i``, else DenseNet.  A network's ``Dense_0`` is its ``head``,
+unless it has a chain of Dense layers (``Dense_1`` too), which are
+``layers.k``; ``OptimizedLSTMCell_0`` is its ``lstm``.
 
 Layouts: conv kernels go from (K, Cin, Cout) to (Cout, Cin, K), Dense
 kernels (in, out) are transposed to (out, in), norm scale/bias become
@@ -18,17 +26,80 @@ weight/bias.  ``load_sgd_momentum`` maps the momentum of an optax SGD
 state the same way, into a torch SGD's state.
 """
 from collections.abc import Mapping
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-# flax module name -> port attribute, by the module that holds it
-_BACKBONE = {"Conv1d_0": "conv0", "BatchStatNorm_0": "norm0",
-             "BatchStatNorm_1": "norm5"}
-_DENSE_LAYER = {"BatchStatNorm_0": "norm1", "Conv1d_0": "conv1",
-                "BatchStatNorm_1": "norm2", "Conv1d_1": "conv2"}
-_TRANSITION = {"BatchStatNorm_0": "norm", "Conv1d_0": "conv"}
+
+class Family(NamedTuple):
+    """A block family's flax module names -> (port attribute, family of
+    the module it names, None when it holds the leaves)."""
+
+    fixed: dict = {}
+    indexed: dict = {}  # flax kind -> (port list attribute, family)
+
+
+_CONV = Family(fixed={"Conv_0": ("", None)})  # flax's Conv in the Conv1d
+_DENSE_LAYER = Family(fixed={
+    "BatchStatNorm_0": ("norm1", None), "Conv1d_0": ("conv1", _CONV),
+    "BatchStatNorm_1": ("norm2", None), "Conv1d_1": ("conv2", _CONV)})
+_TRANSITION = Family(fixed={"BatchStatNorm_0": ("norm", None),
+                            "Conv1d_0": ("conv", _CONV)})
+_DENSENET = Family(
+    fixed={"Conv1d_0": ("conv0", _CONV), "BatchStatNorm_0": ("norm0", None),
+           "BatchStatNorm_1": ("norm5", None)},
+    indexed={"DenseLayer": ("dense_layers", _DENSE_LAYER),
+             "Transition": ("transitions", _TRANSITION)})
+# a ResNet stem and its blocks index convs and norms in creation order
+_RESNET_BLOCK = Family(indexed={"Conv1d": ("convs", _CONV),
+                                "BatchStatNorm": ("norms", None)})
+_RESNET = Family(indexed={**_RESNET_BLOCK.indexed,
+                          "BasicBlock": ("blocks", _RESNET_BLOCK),
+                          "Bottleneck": ("blocks", _RESNET_BLOCK)})
+_LSTM_CELL = Family(fixed={
+    **{"i" + g: ("input." + g, None) for g in "ifgo"},
+    **{"h" + g: ("hidden." + g, None) for g in "ifgo"}})
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _network(backbone, dense_chain):
+    dense = ({} if dense_chain else {"Dense_0": ("head", None)})
+    return Family(
+        fixed={"breath_block": ("breath_block", backbone),
+               "OptimizedLSTMCell_0": ("lstm", _LSTM_CELL), **dense},
+        indexed={"Dense": ("layers", None)} if dense_chain else {})
+
+
+def _root_family(paths):
+    """The family of the tree's top level, from the names it holds."""
+    names = {name for path in paths for name in path[:-1]}
+    resnet = any(n.rpartition("_")[0] in ("BasicBlock", "Bottleneck")
+                 for n in names)
+    backbone = _RESNET if resnet else _DENSENET
+    top = {path[0] for path in paths}
+    if not top & {"breath_block", "OptimizedLSTMCell_0", "Dense_0"}:
+        return backbone  # a bare backbone tree
+    return _network(backbone, "Dense_1" in top)
+
+
+def _port_key(path, family):
+    *modules, leaf = path
+    out = []
+    for name in modules:
+        kind, _, index = name.rpartition("_")
+        if family is not None and name in family.fixed:
+            attr, family = family.fixed[name]
+            out += [attr] if attr else []
+        elif family is not None and kind in family.indexed:
+            attr, family = family.indexed[kind]
+            out += [attr, index]
+        else:
+            raise KeyError("no port counterpart for flax param {}".format(
+                "/".join(path)))
+    if leaf not in _LEAF:
+        raise KeyError("unknown flax leaf {}".format("/".join(path)))
+    return ".".join(out + [_LEAF[leaf]])
 
 
 def _flatten(tree, prefix=()):
@@ -39,47 +110,21 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def _port_key(path):
-    *modules, leaf = path
-    out = []
-    table = _BACKBONE
-    for name in modules:
-        kind, _, index = name.rpartition("_")
-        if name == "Conv_0":  # flax's Conv inside the Conv1d wrapper
-            continue
-        if name == "breath_block":
-            out.append(name)
-        elif name == "Dense_0":
-            out.append("head")
-        elif kind == "DenseLayer":
-            out += ["dense_layers", index]
-            table = _DENSE_LAYER
-        elif kind == "Transition":
-            out += ["transitions", index]
-            table = _TRANSITION
-        elif name in table:
-            out.append(table[name])
-        else:
-            raise KeyError("no port counterpart for flax param {}".format(
-                "/".join(path)))
-    if leaf not in _LEAF:
-        raise KeyError("unknown flax leaf {}".format("/".join(path)))
-    return ".".join(out + [_LEAF[leaf]])
-
-
 def transplant(params):
     """flax params (nested, or flat with "/"-joined keys) -> state_dict
     of float32 CPU tensors, ready for ``load_state_dict``."""
     if any(isinstance(v, Mapping) for v in params.values()):
-        items = _flatten(params)
+        items = list(_flatten(params))
     else:
-        items = ((tuple(k.split("/")), v) for k, v in params.items())
+        items = [(tuple(k.split("/")), v) for k, v in params.items()]
+    family = _root_family([path for path, _ in items])
     state = {}
     for path, value in items:
         value = np.asarray(value, np.float32)
         if path[-1] == "kernel":
             value = np.transpose(value, tuple(range(value.ndim))[::-1])
-        state[_port_key(path)] = torch.tensor(np.ascontiguousarray(value))
+        state[_port_key(path, family)] = torch.tensor(
+            np.ascontiguousarray(value))
     return state
 
 

@@ -55,6 +55,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.data.synthetic",
             "deepards_tpu_torch.data.windowing",
             "deepards_tpu_torch.eval.metrics",
+            "deepards_tpu_torch.models.recurrent",
+            "deepards_tpu_torch.models.resnet1d",
             "deepards_tpu_torch.train.checkpoint",
             "deepards_tpu_torch.train.loader",
             "deepards_tpu_torch.train.loop",
@@ -112,6 +114,75 @@ def test_training_needs_no_pandas_sklearn_or_yaml(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert (tmp_path / "models" / "m-fold0.scaling.json").exists()
     assert (tmp_path / "p.csv").exists() and (tmp_path / "v.json").exists()
+
+
+_CONFIGS_WITHOUT = r"""
+import json, sys
+for blocked in ("pandas", "sklearn", "yaml", "jax", "deepards_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from deepards_tpu_torch.cli.predict import main as predict
+from deepards_tpu_torch.cli.train import main
+from deepards_tpu_torch.data.synthetic import generate_cohort
+
+work = sys.argv[1]
+cohort = generate_cohort(work + "/cohort", n_patients=4,
+                         n_breaths_per_patient=80, seed=3,
+                         subdirs=("all_data", "aim1_70_30_training",
+                                  "aim1_70_30_testing"))
+small = ["--data-path", work + "/cohort", "--cohort-file", cohort,
+         "--epochs", "1", "--device", "cpu", "--results-dir",
+         work + "/results", "--initial-planes", "8"]
+folds = ["--n-sub-batches", "4", "--batch-size", "8", "--kfolds", "2",
+         "--only-fold", "0"]
+report = {}
+for name, extra in (("config2", folds), ("config3", []),
+                    ("config4", folds)):
+    flags = chip_smoke.CONFIG_FLAGS[name] + small + extra
+    trainer = main(flags + ["--save-model", name + ".pt",
+                            "--saved-models-dir", work + "/models"])
+    report[name] = {k: len(v.values) for k, v in
+                    trainer.results.reporting.meters.items()
+                    if k.startswith(("loss_fold", "test_auc", "test_r2"))}
+rows, votes = predict(["--checkpoint", work + "/models/config4-fold0",
+                       "-o", work + "/p.csv", "--votes-output",
+                       work + "/v.json"] + chip_smoke.CONFIG4_FLAGS + small
+                      + folds)
+report["predict_rows"] = len(rows)
+refused = []
+for extra in (["--unshuffled"], ["--parallel-folds"]):
+    try:
+        main(chip_smoke.CONFIG4_FLAGS + small + folds + extra)
+    except NotImplementedError as exc:
+        refused.append(str(exc))
+report["refused"] = refused
+print(json.dumps(report))
+"""
+
+
+def test_configs_2_3_4_train_without_pandas_sklearn_or_yaml(tmp_path):
+    """One epoch of each of configs 2, 3 and 4 from chip_smoke.py's flags
+    (narrowed: resnet18 at 8 initial planes, S = 4 for the k-fold
+    configs) and ``cli.predict`` on config 4's checkpoint, with pandas,
+    scikit-learn, PyYAML, JAX and deepards_tpu blocked; config 4 with
+    ``--unshuffled`` and ``--parallel-folds`` raise NotImplementedError."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CONFIGS_WITHOUT, str(tmp_path)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["config2"]["loss_fold_0"] and \
+        report["config2"]["test_auc_fold_0"] == 1
+    assert report["config3"]["test_r2_fold_0"] == 1
+    assert report["config4"]["test_auc_fold_0"] == 1
+    assert report["predict_rows"] > 0
+    assert len(report["refused"]) == 2
+    assert "unshuffled" in report["refused"][0]
+    assert "parallel_folds" in report["refused"][1]
+    assert (tmp_path / "models" / "config3.scaling.json").exists()
 
 
 _HETERO_WITHOUT = r"""

@@ -183,6 +183,8 @@ def test_registry_builds_seeded_full_width_cnn_linear():
                               built[1].state_dict().items()):
         assert torch.equal(v, w), k
     with pytest.raises(ValueError, match="unknown base network"):
-        get_base_network({"base_network": "resnet18"})
+        get_base_network({"base_network": "no_such_base_network"})
     with pytest.raises(ValueError, match="unknown network"):
-        get_network_spec("cnn_lstm")
+        get_network_spec("no_such_network")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_network_spec("cnn_transformer")
