@@ -36,11 +36,20 @@ copy and kernel, and picks the hetero split files on the matrix;
 ``hetero`` drives the study's CLIs on an ETL cohort (``cli.sim_dissim
 hetero``, ``cli.perform_data_splitting``, a holdout ``cli.train``,
 ``breakdown`` and a cached ``cli.analysis lstm-dtw``).
+The last three training phases: ``config4_unshuffled`` (cnn_lstm's
+stateful fold, one window a step with the LSTM carry kept across a
+patient's windows), ``config7`` (config 1's five folds trained at once
+under ``torch.func.vmap``, each fold's slice of a stacked step held to its
+own sequential step, beside and against five sequential steps, also over
+resnet18) and ``config5`` (ProtoPNet's three stages and the prototype
+push, and GradCAM over 128 sequences), each trained through the CLI, held
+against the CPU and graphed against eager, and timed.
 Every phase prints one JSON line; any failure exits nonzero.  The last
 two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints
 no result.
 """
+import copy
 import io
 import json
 import os
@@ -94,8 +103,25 @@ CONFIG4_FLAGS = [
     "--batch-size", "16", "--network", "cnn_lstm", "--n-sub-batches", "20",
     "--time-series-hidden-units", "16",
 ]
+# benchmark config 5 (unpadded_centered_nb20_protopnet.yml: ProtoPNet over
+# densenet18, 10 prototypes a class of 128 channels)
+CONFIG5_FLAGS = [
+    "--dataset-type", "unpadded_centered_sequences", "--network", "protopnet",
+    "--kfolds", "5", "--epochs", "10", "--batch-size", "16",
+    "--n-sub-batches", "20", "--n-warm-epochs", "3", "-pse", "6",
+    "--push-every-n", "6", "--n-push-iters", "5", "--clust-lambda", "0.8",
+    "--sep-lambda", "0.2", "-np", "10", "-ic", "-0.5",
+]
+# config 5's schedule cut to pass through every stage and two pushes
+CONFIG5_CUT = ["--epochs", "3", "--n-warm-epochs", "1", "-pse", "2",
+               "--push-every-n", "1", "--n-push-iters", "1"]
 CONFIG_FLAGS = {"config1": CONFIG1_FLAGS, "config2": CONFIG2_FLAGS,
-                "config3": CONFIG3_FLAGS, "config4": CONFIG4_FLAGS}
+                "config3": CONFIG3_FLAGS, "config4": CONFIG4_FLAGS,
+                # config 4's stateful fold, config 1's folds trained at once
+                # (the JAX benchmark's config 7), config 5
+                "config4_unshuffled": CONFIG4_FLAGS + ["--unshuffled"],
+                "config7": CONFIG1_FLAGS + ["--parallel-folds"],
+                "config5": CONFIG5_FLAGS}
 
 # published H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -630,9 +656,13 @@ BY_GRADIENT = {
                 "breath_block.blocks.0.", "breath_block.blocks.1."),
     "config3": ("breath_block.conv0.",),
     "config4": ("breath_block.conv0.",),
+    "config4_unshuffled": ("breath_block.conv0.",),
+    "config7": ("breath_block.conv0.",),
+    "config5": ("breath_block.conv0.",),
 }
 TRAIN_SERVE_ATOL = 1e-5  # the same params and batch on one device
 MEASURE_WINDOWS = 4096  # the device-cache epoch timed: 256 steps of 16
+STEP_NUMBERS = {}  # config -> train_numbers' readings of this run
 
 
 def config_conf(name, *flags):
@@ -648,6 +678,8 @@ def config_conf(name, *flags):
 class CacheView:
     """The part of a dataset the trainer's device-cache epoch reads: a
     window cache and its current indices (all of them)."""
+
+    dataset_type = "unpadded_centered_sequences"
 
     def __init__(self, cache):
         self.cache = cache
@@ -676,11 +708,13 @@ def config_cohort(workdir, conf):
     return cohort_dir, cohort
 
 
-def train_config(workdir, device, name="config1"):
+def train_config(workdir, device, name="config1", epochs=TRAIN_EPOCHS,
+                 extra=()):
     """Config ``name`` through ``deepards_tpu_torch.cli.train.main`` on a
-    seeded synthetic cohort, TRAIN_EPOCHS epochs of every fold, with its
-    checkpoints and results checked: a classifier's AUC meters and
-    patient records, a regressor's test MAE, MSE and r2."""
+    seeded synthetic cohort, ``epochs`` epochs of every fold (``extra``
+    flags after the config's), with its checkpoints and results checked:
+    a classifier's AUC meters and patient records, a regressor's test
+    MAE, MSE and r2."""
     from deepards_tpu_torch.cli.train import main as train_main
     from deepards_tpu_torch.data.dataset import ARDSRawDataset
     from deepards_tpu_torch.train import checkpoint as ckpt
@@ -695,10 +729,10 @@ def train_config(workdir, device, name="config1"):
         kfold_num=0 if kfolds else None, total_kfolds=kfolds).cache)
     t0 = time.perf_counter()
     trainer = train_main(CONFIG_FLAGS[name] + [
-        "--epochs", str(TRAIN_EPOCHS), "--data-path", cohort_dir,
+        "--epochs", str(epochs), "--data-path", cohort_dir,
         "--cohort-file", cohort, "--results-dir", results_dir,
         "--save-model", name + ".pt", "--saved-models-dir", models_dir,
-        "--device", device])
+        "--device", device] + list(extra))
     seconds = time.perf_counter() - t0
     res = trainer.results
     classifier = trainer.spec.kind == "classifier"
@@ -716,7 +750,7 @@ def train_config(workdir, device, name="config1"):
             raise AssertionError("{} fold {}: losses {}".format(
                 name, fold, losses))
         bad = [m for m, meter in tested.items()
-               if meter is None or len(meter) != TRAIN_EPOCHS
+               if meter is None or len(meter) != epochs
                or (not classifier and not np.isfinite(meter.values).all())]
         if bad or (classifier and not rows):
             raise AssertionError("{} fold {}: test meters {} or patient "
@@ -739,7 +773,7 @@ def train_config(workdir, device, name="config1"):
             "_results_" in n for n in names):
         raise AssertionError("meters or results record missing")
     shape = (conf.n_sub_batches, C, L)
-    reduced = {"epochs": "10 -> {}".format(TRAIN_EPOCHS),
+    reduced = {"epochs": "10 -> {}".format(epochs),
                "cohort": "synthetic, 10 patients x 400 breaths ({} windows "
                          "of {}) in place of ~100 patients x 24 h".format(
                              windows, shape)}
@@ -1259,6 +1293,7 @@ def train_numbers(workdir, device, name="config1",
         del runner, trainer
     out["compute_dtype"] = "bfloat16"
     out["batch"] = batch
+    STEP_NUMBERS[name] = out
     return out
 
 
@@ -1542,6 +1577,954 @@ def phase_config(workdir, name, device="cuda"):
             name, "; ".join(failed)))
 
 
+def elements_over(got, want, names, limit):
+    """Per tensor of ``names``, the count of elements of ``got`` more than
+    ``limit`` from ``want``; tensors with none left out."""
+    counts = {}
+    for n in names:
+        bad = int(((got[n] - want[n]).abs() > limit).sum())
+        if bad:
+            counts[n] = bad
+    return counts
+
+
+def snapshot(tensors):
+    """float64 CPU copies of a mapping of tensors."""
+    import torch
+
+    return {n: v.detach().to("cpu", torch.float64, copy=True)
+            for n, v in tensors.items()}
+
+
+def step_profile(fn, reps=20):
+    """A step's time (CUDA events), its back-to-back time over 20 queued
+    calls, device time, kernels and idle share."""
+    ms = cuda_ms(fn, warmup=3, reps=reps)
+    b2b = cuda_ms(lambda: [fn() for _ in range(20)], warmup=1, reps=3) / 20
+    prof = device_breakdown(fn)
+    return {"ms": ms, "back_to_back_ms": b2b,
+            "device_ms": prof["device_ms_per_call"],
+            "launches": prof["kernel_launches_per_call"],
+            "host_dispatches": prof["host_dispatches_per_call"],
+            "device_idle_share": 1.0 - prof["device_ms_per_call"] / ms,
+            "top": prof["top"][:4]}
+
+
+# -- config 4 with --unshuffled: the stateful fold ---------------------------
+
+# card vs CPU: three windows, the first two of one patient (the carry
+# goes on), the third of the next (the carry is reset)
+STATEFUL_RESETS = (1.0, 0.0, 1.0)
+
+
+def stateful_card_vs_cpu(device):
+    """Three stateful train steps of config 4's cnn_lstm at full width,
+    one window each, dropout off, the carry taken across the first
+    boundary and reset at the second, on the device and on the CPU from the
+    same params, in float32 and float64: the losses within 1e-4, the carry
+    and every param element within 1e-5 after each step (in float32 the
+    first conv held by float64, as ``TRAIN_STEP_ATOL`` says).  Planted
+    faults each check must fail: the head's bias left at its init; the CPU
+    run with no reset at the patient change (its carry and its last loss
+    must part from the card's)."""
+    import torch
+
+    from deepards_tpu_torch.data.pipeline import transform_batch
+    from deepards_tpu_torch.train.loop import Trainer, make_stateful_steps
+    from deepards_tpu_torch.train.steps import TrainState, make_optimizer
+
+    conf = config_conf("config4_unshuffled", "--device", "cpu")
+    s = conf.n_sub_batches
+    rng = np.random.default_rng(SEED + 9)
+    raw = make_windows(rng, 3, s)
+    mu, std = np.float32([raw.mean()]), np.float32([raw.std()])
+    targets = np.eye(2, dtype=np.float32)[[1, 1, 0]]
+    trainer = Trainer(conf, verbose=False)
+    trainer.n_sub_batches = s
+    init = trainer.build_model().reset_parameters(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    names = list(init)
+    head_bias = "head.bias"
+    by_gradient = [n for n in names if n.startswith(BY_GRADIENT["config4"])]
+    limit = TRAIN_STEP_ATOL["params"]
+
+    def run(dev, dtype, resets=STATEFUL_RESETS):
+        model = trainer.build_model()
+        model.load_state_dict(init)
+        model.to(device=dev, dtype=dtype)
+        optimizer = make_optimizer(
+            model.parameters(), conf.optimizer,
+            learning_rate=conf.learning_rate,
+            weight_decay=conf.weight_decay,
+            clip_grad=bool(conf.get("clip_grad")), clip_val=conf.clip_val)
+        state = TrainState(model, optimizer, torch.Generator(device=dev))
+        mu_d, std_d = (torch.from_numpy(a).to(dev, dtype) for a in (mu, std))
+        step, _ = make_stateful_steps(
+            trainer.loss_fn,
+            transform=lambda d: transform_batch(d, mu_d, std_d),
+            dropout_active=False)
+        carry = [torch.zeros(1, model.lstm.hidden_size, device=dev,
+                             dtype=dtype) for _ in range(2)]
+        mask = torch.ones(1, device=dev, dtype=dtype)
+        losses, params, carries = [], [], []
+        for k in range(3):
+            x, t = (torch.from_numpy(a[k:k + 1]).to(dev, dtype)
+                    for a in (raw, targets))
+            reset = torch.tensor([resets[k]], device=dev, dtype=dtype)
+            losses.append(float(step(state, x, t, mask, carry[0], carry[1],
+                                     reset)))
+            params.append(snapshot(model.state_dict()))
+            carries.append(snapshot({"c": carry[0], "h": carry[1]}))
+        return losses, params, carries
+
+    fields = {"atol": TRAIN_STEP_ATOL, "resets": STATEFUL_RESETS}
+    failed = []
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("float64", torch.float64)):
+        f32 = dtype == torch.float32
+        cpu_losses, cpu_params, cpu_carries = run("cpu", dtype)
+        dev_losses, dev_params, dev_carries = run(device, dtype)
+        held = [n for n in names if not (f32 and n in by_gradient)]
+        loss_err = float(np.max(np.abs(np.subtract(dev_losses, cpu_losses))))
+        record = fields[dtype_name] = {
+            "losses_device": dev_losses, "losses_cpu": cpu_losses,
+            "max_abs_loss": loss_err}
+        if loss_err > TRAIN_STEP_ATOL["loss"]:
+            failed.append("{} loss {}".format(dtype_name, loss_err))
+        for k in range(3):
+            over = elements_over(dev_params[k], cpu_params[k], held, limit)
+            carry_err = max(float((dev_carries[k][n] - cpu_carries[k][n])
+                                  .abs().max()) for n in ("c", "h"))
+            record["after_step_{}".format(k + 1)] = {
+                "over_atol_held": over, "max_abs_carry": carry_err,
+                "max_abs_params": max(
+                    float((dev_params[k][n] - cpu_params[k][n]).abs().max())
+                    for n in names)}
+            if over or carry_err > limit:
+                failed.append("{} after step {}: params over {}: {}, carry "
+                              "{}".format(dtype_name, k + 1, limit, over,
+                                          carry_err))
+        planted = dict(dev_params[-1])
+        planted[head_bias] = init[head_bias].double()
+        caught = elements_over(planted, cpu_params[-1], held, limit)
+        _, _, unreset = run("cpu", dtype, resets=(1.0, 0.0, 0.0))
+        unreset_err = max(float((dev_carries[-1][n] - unreset[-1][n])
+                                .abs().max()) for n in ("c", "h"))
+        record["planted"] = {"head_bias_not_updated_over_atol":
+                             sum(caught.values()),
+                             "no_reset_at_patient_change_max_abs_carry":
+                             unreset_err}
+        if not caught or unreset_err <= limit:
+            raise AssertionError("the stateful {} check would pass a planted "
+                                 "fault: {}".format(dtype_name,
+                                                    record["planted"]))
+        if not f32:
+            for n in by_gradient:
+                moved = float((cpu_params[-1][n] - init[n].double())
+                              .abs().max())
+                if moved <= limit:
+                    raise AssertionError("3 steps move {} by {}: the float64 "
+                                         "check could not fail".format(
+                                             n, moved))
+    if failed:
+        raise AssertionError("config4 --unshuffled card vs CPU: "
+                             + "; ".join(failed))
+    return fields
+
+
+def stateful_graph_vs_eager(workdir, device):
+    """A train and a test epoch of the stateful fold over 8 windows of
+    two patients (full width), graphed and eager from one fold state:
+    float32 with dropout off, losses, params and eval logits within
+    GRAPH_ATOL; bfloat16 with dropout on, losses within GRAPH_ATOL and the
+    generators equal.  Returns (fields, failures, the graphed bf16 runner
+    for timing)."""
+    import torch
+
+    from deepards_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(SEED + 10)
+    ds = cohort_dataset(workdir, make_windows(rng, 8), [1, 0], 4)
+    fields = {"windows": 8, "patients": 2, "atol": GRAPH_ATOL}
+    failed = []
+    timed = None
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype, dropout in (("float32", False), ("bfloat16", True)):
+            runs = {}
+            for graphs in (False, True):
+                conf = config_conf("config4_unshuffled", "--device", device,
+                                   "--compute-dtype", dtype, "--results-dir",
+                                   os.path.join(workdir, "stateful_g"))
+                trainer = Trainer(conf, verbose=False)
+                trainer.n_sub_batches = S
+                state = trainer.new_state(0)
+                runner = trainer.make_stateful_runner(
+                    state, ds, dropout=dropout,
+                    graphed=graphs and trainer.device.type == "cuda")
+                trainer.run_stateful_epoch(runner, ds, True, 0, 1)
+                trainer.run_stateful_epoch(runner, ds, False, 0, 1)
+                res = trainer.results
+                runs[graphs] = (
+                    np.asarray(res.get_meter("loss", 0).values),
+                    np.asarray(res.get_meter("test_loss", 0).values),
+                    snapshot(state.model.state_dict()),
+                    trainer.last_eval["logits"], state.generator.get_state())
+                if graphs and dropout:
+                    timed = runner
+            (e_loss, e_test, e_params, e_out, e_rng) = runs[False]
+            (g_loss, g_test, g_params, g_out, g_rng) = runs[True]
+            loss_err = float(max(np.abs(g_loss - e_loss).max(),
+                                 np.abs(g_test - e_test).max()))
+            param_err = max(float((g_params[k] - e_params[k]).abs().max())
+                            for k in e_params)
+            out_err = float(np.abs(g_out - e_out).max())
+            same_rng = bool(torch.equal(g_rng, e_rng))
+            fields[dtype] = {"dropout": dropout, "max_abs_loss": loss_err,
+                             "max_abs_params": param_err,
+                             "max_abs_eval_logits": out_err,
+                             "generator_state_equal": same_rng,
+                             "steps": len(g_loss)}
+            if loss_err > GRAPH_ATOL or (not dropout and (
+                    param_err > GRAPH_ATOL or out_err > GRAPH_ATOL)) or (
+                    dropout and not same_rng) or len(g_loss) != 8:
+                failed.append("{}: {}".format(dtype, fields[dtype]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return fields, failed, timed
+
+
+def phase_config4_unshuffled(workdir, device="cuda"):
+    """Config 4 with ``--unshuffled`` on the device: trained through the
+    CLI (every fold, TRAIN_EPOCHS epochs), 3 full-width stateful steps
+    held against the CPU, graphed epochs held to eager ones, and the bf16
+    graphed step of one window timed."""
+    t0 = time.perf_counter()
+    trainer, _, run = train_config(workdir, device, "config4_unshuffled")
+    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
+              "flags": CONFIG_FLAGS["config4_unshuffled"], "run": run,
+              "eval_logits_shape": list(trainer.last_eval["logits"].shape),
+              "card_vs_cpu": stateful_card_vs_cpu(device)}
+    fields["graph_vs_eager"], failed, runner = stateful_graph_vs_eager(
+        workdir, device)
+    if device == "cuda":
+        fields["numbers"] = {"batch": 1, "compute_dtype": "bfloat16",
+                             "step": step_profile(runner.train),
+                             "eval": step_profile(runner.eval)}
+        step = fields["numbers"]["step"]
+        step["windows_per_s"] = 1e3 / step["back_to_back_ms"]
+        print("numbers config4_unshuffled: {} ms a step, {} ms on the "
+              "device, {} kernels".format(step["ms"], step["device_ms"],
+                                          step["launches"]), flush=True)
+    fields["phase_seconds"] = time.perf_counter() - t0
+    emit("config4_unshuffled", **fields)
+    if failed:
+        raise AssertionError("config4 --unshuffled graphed vs eager: "
+                             + "; ".join(failed))
+
+
+# -- config 7: --parallel-folds ----------------------------------------------
+
+PARALLEL_FOLDS = 5
+FOLD_SLICE_ATOL = 1e-6  # a fold's slice of a stacked step vs its own step
+
+
+def stacked_trainer(name, workdir, device, ds, splits, dtype="bfloat16",
+                    dropout=True, graphed=True):
+    """A ``ParallelFoldTrainer`` of config ``name``'s flags with the
+    stacked state of len(splits) folds (unit scaling) and its runner over
+    batches of ``ds``, built without a cohort."""
+    from deepards_tpu_torch.train.parallel_folds import ParallelFoldTrainer
+
+    conf = config_conf(name, "--device", device, "--compute-dtype", dtype,
+                       "--results-dir", os.path.join(workdir, "stacked"))
+    trainer = ParallelFoldTrainer(conf, verbose=False)
+    trainer.n_sub_batches = ds.cache.data.shape[1]
+    trainer.fold_train_idx = trainer.fold_test_idx = list(splits)
+    unit = (np.zeros(C, np.float32), np.ones(C, np.float32))
+    trainer.scaling = [unit] * len(splits)
+    state = trainer.new_stacked_state(len(splits))
+    runner = trainer.make_stacked_runner(
+        state, ds, dropout=dropout,
+        graphed=graphed and trainer.device.type == "cuda")
+    return trainer, runner
+
+
+def stacked_card_vs_cpu(device):
+    """Three stacked steps of config 7 (5 folds of config 1's network at
+    full width and batch, dropout off, each fold its own init, scaling
+    and batches, one pad row a fold) on the device and on the CPU, in
+    float32 and float64: the (5,) losses within 1e-4 and every element of
+    the stacked params within 1e-5 after each step (in float32 the first
+    conv held by float64).  Then each fold's slice of one stacked step on
+    the device against that fold's own sequential step there
+    (``make_train_step``, the same params, batch and scaling): losses and
+    params within FOLD_SLICE_ATOL, in float32 (the first conv held by
+    float64) and float64.  Planted: the head's bias left at its init;
+    fold 0's slice against fold 1's step."""
+    import torch
+
+    from deepards_tpu_torch.data.pipeline import transform_batch
+    from deepards_tpu_torch.train.loop import Trainer
+    from deepards_tpu_torch.train.parallel_folds import (
+        StackedParams,
+        make_fold_steps,
+    )
+    from deepards_tpu_torch.train.steps import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    conf = config_conf("config7", "--device", "cpu")
+    folds, s, batch = PARALLEL_FOLDS, conf.n_sub_batches, conf.batch_size
+    rng = np.random.default_rng(SEED + 11)
+    raw = make_windows(rng, 3 * folds * batch, s).reshape(
+        (3, folds, batch, s, C, L))
+    targets = np.eye(2, dtype=np.float32)[rng.integers(
+        0, 2, (3, folds, batch))]
+    masks = np.ones((3, folds, batch), np.float32)
+    masks[:, :, -1] = 0.0
+    mus = np.stack([[raw[:, f].mean()] for f in range(folds)]).astype(
+        np.float32)
+    stds = np.stack([[raw[:, f].std()] for f in range(folds)]).astype(
+        np.float32)
+    trainer = Trainer(conf, verbose=False)
+    trainer.n_sub_batches = s
+    inits = [trainer.build_model().reset_parameters(
+        torch.Generator().manual_seed(SEED + f)).state_dict()
+        for f in range(folds)]
+    names = list(inits[0])
+    limit = TRAIN_STEP_ATOL["params"]
+    by_gradient = [n for n in names if n.startswith(BY_GRADIENT["config7"])]
+    opt_kw = dict(learning_rate=conf.learning_rate,
+                  weight_decay=conf.weight_decay,
+                  clip_grad=bool(conf.get("clip_grad")),
+                  clip_val=conf.clip_val)
+
+    def on(dev, dtype, *arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+                for a in arrays]
+
+    def stacked_run(dev, dtype, steps=3):
+        params = StackedParams(names, [torch.stack([i[n] for i in inits])
+                                       for n in names]).to(dev, dtype)
+        template = trainer.build_model().to(dev, dtype)
+        state = TrainState(params, make_optimizer(
+            params.parameters(), conf.optimizer, **opt_kw),
+            torch.Generator(device=dev))
+        mu_d, std_d = on(dev, dtype, mus, stds)
+        step, _ = make_fold_steps(template, trainer.loss_fn, mu_d, std_d,
+                                  dropout_active=False)
+        losses, snaps = [], []
+        for k in range(steps):
+            losses.append(step(state, *on(dev, dtype, raw[k], targets[k],
+                                          masks[k])).cpu().double().numpy())
+            snaps.append(snapshot(params.as_dict()))
+        return np.stack(losses), snaps
+
+    def fold_run(f, dev, dtype):
+        model = trainer.build_model()
+        model.load_state_dict(inits[f])
+        model.to(dev, dtype)
+        state = TrainState(model, make_optimizer(
+            model.parameters(), conf.optimizer, **opt_kw),
+            torch.Generator(device=dev))
+        mu_d, std_d = on(dev, dtype, mus[f], stds[f])
+        step, _ = make_train_step(
+            trainer.loss_fn,
+            transform=lambda d: transform_batch(d, mu_d, std_d),
+            dropout_active=False)
+        loss = float(step(state, *on(dev, dtype, raw[0, f], targets[0, f],
+                                     masks[0, f])))
+        return loss, snapshot(model.state_dict())
+
+    fields = {"folds": folds, "batch": batch, "atol": TRAIN_STEP_ATOL}
+    failed = []
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("float64", torch.float64)):
+        f32 = dtype == torch.float32
+        cpu_losses, cpu_params = stacked_run("cpu", dtype)
+        dev_losses, dev_params = stacked_run(device, dtype)
+        held = [n for n in names if not (f32 and n in by_gradient)]
+        loss_err = float(np.abs(dev_losses - cpu_losses).max())
+        record = fields[dtype_name] = {"max_abs_loss": loss_err,
+                                       "losses_device": dev_losses.tolist()}
+        if loss_err > TRAIN_STEP_ATOL["loss"]:
+            failed.append("{} loss {}".format(dtype_name, loss_err))
+        for k in range(3):
+            over = elements_over(dev_params[k], cpu_params[k], held, limit)
+            record["after_step_{}".format(k + 1)] = {
+                "over_atol_held": over,
+                "max_abs_params": max(float((dev_params[k][n]
+                                             - cpu_params[k][n]).abs().max())
+                                      for n in names)}
+            if over:
+                failed.append("{} after step {}: {}".format(dtype_name,
+                                                            k + 1, over))
+        planted = dict(dev_params[-1])
+        planted["head.bias"] = torch.stack(
+            [i["head.bias"] for i in inits]).double()
+        caught = elements_over(planted, cpu_params[-1], held, limit)
+        record["planted_head_bias_not_updated"] = sum(caught.values())
+        if not caught:
+            raise AssertionError("the stacked {} check would pass the head's "
+                                 "bias left at its init".format(dtype_name))
+    # each fold's slice of one stacked step against the fold's own
+    # sequential step, on the device; in float32 the first conv (whose
+    # gradient sums cancel, BY_GRADIENT) held by the float64 run
+    record = fields["fold_slice_vs_sequential"] = {"atol": FOLD_SLICE_ATOL}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("float64", torch.float64)):
+        held = [n for n in names if not (dtype == torch.float32
+                                         and n in by_gradient)]
+        one_losses, one_params = stacked_run(device, dtype, steps=1)
+        slices = []
+        for f in range(folds):
+            loss, params = fold_run(f, device, dtype)
+            slices.append(max([abs(loss - float(one_losses[0, f]))] + [
+                float((one_params[0][n][f] - params[n]).abs().max())
+                for n in held]))
+            if f == 0:
+                _, other = fold_run(1, device, dtype)
+                planted = max(float((one_params[0][n][0] - other[n])
+                                    .abs().max()) for n in held)
+                if planted <= FOLD_SLICE_ATOL:
+                    raise AssertionError("the fold-slice check would pass "
+                                         "fold 1's step for fold 0's")
+        record[dtype_name] = {
+            "max_abs_by_fold": slices, "planted_other_fold": planted,
+            "first_conv_max_abs_last_fold": max(
+                float((one_params[0][n][f] - params[n]).abs().max())
+                for n in by_gradient)}
+        if max(slices) > FOLD_SLICE_ATOL:
+            failed.append("{} fold slices vs sequential steps: {}".format(
+                dtype_name, slices))
+    if failed:
+        raise AssertionError("config7 card vs CPU: " + "; ".join(failed))
+    return fields
+
+
+def stacked_graph_vs_eager(workdir, device):
+    """GRAPH_STEPS stacked steps of config 7 and an eval epoch, graphed
+    and eager from one state, as ``graph_vs_eager`` holds the sequential
+    steps.  Returns (fields, failures)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 12)
+    conf = config_conf("config7")
+    batch = conf.batch_size
+    n = GRAPH_STEPS * batch
+    ds = random_cache(rng, PARALLEL_FOLDS * n, conf)
+    ds.cache.data[:] = make_windows(rng, PARALLEL_FOLDS * n, S)
+    splits = np.arange(PARALLEL_FOLDS * n).reshape(PARALLEL_FOLDS, n)
+    ids = np.stack([rng.permutation(split).reshape(GRAPH_STEPS, batch)
+                    for split in splits], axis=1)
+    masks = np.ones(ids.shape, np.float32)
+    masks[-1, :, -3:] = 0.0
+    fields = {"steps": GRAPH_STEPS, "folds": PARALLEL_FOLDS,
+              "atol": GRAPH_ATOL}
+    failed = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype, dropout in (("float32", False), ("bfloat16", True)):
+            runs = {}
+            for graphs in (False, True):
+                trainer, runner = stacked_trainer(
+                    "config7", workdir, device, ds, splits, dtype, dropout,
+                    graphs)
+                losses, _ = trainer.stacked_steps(runner, ds, ids, masks,
+                                                  True)
+                _, outs = trainer.stacked_steps(runner, ds, ids, masks,
+                                                False)
+                runs[graphs] = (losses.cpu(), snapshot(
+                    runner.state.model.as_dict()), outs.cpu(),
+                    runner.state.generator.get_state())
+            e_loss, e_params, e_out, e_rng = runs[False]
+            g_loss, g_params, g_out, g_rng = runs[True]
+            loss_err = float((g_loss - e_loss).abs().max())
+            param_err = max(float((g_params[k] - e_params[k]).abs().max())
+                            for k in e_params)
+            out_err = float((g_out - e_out).abs().max())
+            same_rng = bool(torch.equal(g_rng, e_rng))
+            fields[dtype] = {"dropout": dropout, "max_abs_loss": loss_err,
+                             "max_abs_params": param_err,
+                             "max_abs_eval_logits": out_err,
+                             "generator_state_equal": same_rng}
+            if loss_err > GRAPH_ATOL or out_err > GRAPH_ATOL or (
+                    not dropout and param_err > GRAPH_ATOL) or (
+                    dropout and not same_rng):
+                failed.append("{}: {}".format(dtype, fields[dtype]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return fields, failed
+
+
+def stacked_numbers(workdir, device, name):
+    """The bf16 graphed stacked step of config ``name``'s network over 5
+    folds (dropout on) on a MEASURE_WINDOWS-window device cache split 5
+    ways: step time, device time, kernels, idle share, and an epoch of all
+    folds (windows/s over all folds), beside 5 times the sequential
+    step this run measured for the config."""
+    import torch
+
+    conf = config_conf(name)
+    batch = conf.batch_size
+    ds = random_cache(np.random.default_rng(SEED + 13), MEASURE_WINDOWS,
+                      conf)
+    splits = np.array_split(np.arange(MEASURE_WINDOWS), PARALLEL_FOLDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, runner = stacked_trainer(name, workdir, device, ds, splits)
+    ids = np.stack([split[:batch] for split in splits])[None]
+    trainer.stacked_steps(runner, ds, ids, np.ones(ids.shape, np.float32),
+                          True)
+    step = step_profile(runner.train)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run_stacked_train_epoch(runner, ds, 1)
+    trainer._flush_deferred()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = len(trainer.results.get_meter("loss", 0).values)
+    windows = steps * batch * PARALLEL_FOLDS
+    sequential = STEP_NUMBERS.get(name, {}).get("graphed", {})
+    out = {"folds": PARALLEL_FOLDS, "batch": batch, "compute_dtype":
+           "bfloat16", "step": step, "epoch_steps": steps,
+           "epoch_seconds": seconds, "windows_per_s": windows / seconds,
+           "step_windows_per_s": PARALLEL_FOLDS * batch * 1e3
+           / step["back_to_back_ms"],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    if sequential:
+        out["sequential"] = {
+            "step_ms": sequential["train_step_ms"],
+            "five_steps_ms": PARALLEL_FOLDS * sequential["train_step_ms"],
+            "launches_per_step": sequential["launches_per_step"],
+            "windows_per_s": sequential["windows_per_s"]}
+        out["speedup_vs_5_sequential_steps"] = (
+            PARALLEL_FOLDS * sequential["train_step_ms"] / step["ms"])
+    print("numbers {} x{} folds: {} ms a stacked step, {} ms on the device, "
+          "{} kernels, {} windows/s".format(
+              name, PARALLEL_FOLDS, step["ms"], step["device_ms"],
+              step["launches"], out["windows_per_s"]), flush=True)
+    return out
+
+
+def phase_config7(workdir, device="cuda"):
+    """Config 1's folds trained at once (``--parallel-folds``, the JAX
+    benchmark's config 7): the CLI run, 3 stacked steps card vs CPU and
+    each fold's slice vs its own sequential step, graphed vs eager, a
+    fold's checkpoint through ``cli.predict`` against the trainer's eval,
+    and the timed bf16 stacked step of densenet18 and of resnet18 (config
+    2's network, the JAX benchmark's vmapped config 2)."""
+    t0 = time.perf_counter()
+    trainer, models_dir, run = train_config(workdir, device, "config7")
+    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
+              "flags": CONFIG_FLAGS["config7"], "run": run,
+              "card_vs_cpu": stacked_card_vs_cpu(device)}
+    fields["graph_vs_eager"], failed = stacked_graph_vs_eager(workdir,
+                                                              device)
+    cohort_dir, cohort = config_cohort(workdir, trainer.conf)
+    fields["predict"] = predict_vs_eval(
+        CONFIG1_FLAGS + ["--data-path", cohort_dir, "--cohort-file", cohort,
+                         "--only-fold", "0", "--device", device],
+        os.path.join(models_dir, "config7-fold0"),
+        os.path.join(workdir, "config7"))
+    if device == "cuda":
+        fields["numbers"] = {
+            "config1_parallel": stacked_numbers(workdir, device, "config1"),
+            "config2_parallel": stacked_numbers(workdir, device, "config2")}
+    fields["phase_seconds"] = time.perf_counter() - t0
+    emit("config7", **fields)
+    if failed:
+        raise AssertionError("config7 graphed vs eager: " + "; ".join(failed))
+
+
+# -- config 5: ProtoPNet and GradCAM -----------------------------------------
+
+# the push, card vs CPU: prototype vectors (sigmoid outputs) within 1e-5;
+# distances, sums of 128 squares near 10 less a cross term, within 1e-5
+# of their size (float32 rounds terms of ~40 to 4e-6)
+PUSH_ATOL = 1e-5
+# a stage's params after one float64 step, card vs CPU: the last layer
+# moves ~1e-6 in a step at lr 1e-3, under TRAIN_STEP_ATOL's 1e-5, so only
+# a float64 limit can see it left at its init
+STAGE_F64_ATOL = 1e-10
+CAM_SEQUENCES = 128  # the JAX benchmark's cam pass (bench.py:951-979)
+CAM_ATOL = 1e-5
+
+
+def ppnet_trainer(device, *flags):
+    from deepards_tpu_torch.train.protopnet_trainer import ProtoPNetTrainer
+
+    conf = config_conf("config5", "--device", device, *flags)
+    trainer = ProtoPNetTrainer(conf, verbose=False)
+    trainer.n_sub_batches = conf.n_sub_batches
+    return trainer
+
+
+def ppnet_card_vs_cpu(device):
+    """One full-width step of each stage of config 5 (batch 16, one pad
+    row, dropout off) on the device and on the CPU from the same params,
+    in float32 and float64: the loss within 1e-4, the stage's params
+    within 1e-5 in float32 (the first conv held by float64) and
+    STAGE_F64_ATOL in float64, and every param outside the stage
+    bit-equal to its init on both sides.  Planted: the stage's most moved
+    param left at its init, which the float64 check of every stage and the
+    float32 check of a stage that moves it more than 1e-5 must fail; a
+    param outside the stage moved by 1e-6."""
+    import torch
+
+    from deepards_tpu_torch.data.pipeline import transform_batch
+    from deepards_tpu_torch.train.protopnet_trainer import (
+        STAGES,
+        make_ppnet_steps,
+        stage_groups,
+    )
+    from deepards_tpu_torch.train.steps import TrainState, make_optimizer
+
+    trainer = ppnet_trainer("cpu")
+    conf = trainer.conf
+    rng = np.random.default_rng(SEED + 14)
+    raw = make_windows(rng, conf.batch_size, conf.n_sub_batches)
+    mu, std = np.float32([raw.mean()]), np.float32([raw.std()])
+    targets = np.eye(2, dtype=np.float32)[rng.integers(0, 2,
+                                                       conf.batch_size)]
+    mask = np.ones(conf.batch_size, np.float32)
+    mask[-1] = 0.0
+    init = trainer.build_model().reset_parameters(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    init_params = snapshot(init)
+    limit = TRAIN_STEP_ATOL["params"]
+
+    def run(dev, dtype, stage):
+        model = trainer.build_model()
+        model.load_state_dict(init)
+        model.to(device=dev, dtype=dtype)
+        group = {id(p) for p in stage_groups(model)[stage]}
+        inside = [n for n, p in model.named_parameters() if id(p) in group]
+        optimizer = make_optimizer(
+            stage_groups(model)[stage], conf.optimizer,
+            learning_rate=conf.learning_rate,
+            weight_decay=conf.weight_decay)
+        state = TrainState(model, optimizer, torch.Generator(device=dev))
+        mu_d, std_d = (torch.from_numpy(a).to(dev, dtype) for a in (mu, std))
+        ident = torch.as_tensor(model.class_identity_windows(), device=dev,
+                                dtype=dtype)
+        steps, _ = make_ppnet_steps(
+            model, lambda d: transform_batch(d, mu_d, std_d), ident,
+            model.max_dist, conf.clust_lambda, conf.sep_lambda,
+            dropout_active=False)
+        x, t, m = (torch.from_numpy(a).to(dev, dtype)
+                   for a in (raw, targets, mask))
+        out = steps[stage](state, x, t, m).cpu().double().numpy()
+        return out, snapshot(model.state_dict()), inside
+
+    fields = {"atol": TRAIN_STEP_ATOL}
+    failed = []
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("float64", torch.float64)):
+        f32 = dtype == torch.float32
+        for stage in STAGES:
+            cpu_out, cpu_params, inside = run("cpu", dtype, stage)
+            dev_out, dev_params, _ = run(device, dtype, stage)
+            outside = [n for n in init if n not in inside]
+            held = [n for n in inside if not (
+                f32 and n.startswith(BY_GRADIENT["config5"]))]
+            atol = limit if f32 else STAGE_F64_ATOL
+            loss_err = float(np.abs(dev_out - cpu_out).max())
+            over = elements_over(dev_params, cpu_params, held, atol)
+            def moved_outside(params):
+                return [n for n in outside
+                        if not torch.equal(params[n], init[n].double())]
+
+            moved = {"device": moved_outside(dev_params),
+                     "cpu": moved_outside(cpu_params)}
+            stage_moved = max(float((cpu_params[n] - init[n].double())
+                                    .abs().max()) for n in inside)
+            fields["{}_{}".format(dtype_name, stage)] = {
+                "loss_and_parts_device": dev_out.tolist(),
+                "max_abs_loss_parts": loss_err, "params_in_stage":
+                len(inside), "over_atol_held": over,
+                "params_outside_moved": moved,
+                "max_abs_params": max(float((dev_params[n] - cpu_params[n])
+                                            .abs().max()) for n in inside),
+                "stage_moved_max_abs": stage_moved}
+            if loss_err > TRAIN_STEP_ATOL["loss"] or over or any(
+                    moved.values()):
+                failed.append("{} {}: loss {}, over {}, outside moved {}"
+                              .format(dtype_name, stage, loss_err, over,
+                                      moved))
+            # planted: the stage's most moved param left at its init, an
+            # outside param moved by 1e-6
+            target_param = max(held, key=lambda n: float(
+                (cpu_params[n] - init[n].double()).abs().max()))
+            planted = dict(dev_params)
+            planted[target_param] = init[target_param].double()
+            caught = bool(elements_over(planted, cpu_params, held, atol))
+            fields["{}_{}".format(dtype_name, stage)]["planted_caught"] = \
+                caught
+            nudged = dict(init_params)
+            nudged[outside[0]] = nudged[outside[0]] + 1e-6
+            if (not caught and (not f32 or stage_moved > limit)) or \
+                    moved_outside(nudged) != [outside[0]]:
+                raise AssertionError("the {} {} stage check would pass a "
+                                     "planted fault".format(dtype_name,
+                                                            stage))
+    if failed:
+        raise AssertionError("config5 card vs CPU: " + "; ".join(failed))
+    return fields
+
+
+def push_card_vs_cpu(workdir, device):
+    """The push over 64 full-width windows of 8 patients (batch 16, the
+    last batch padded) on the device and on the CPU from the same params:
+    the same winners (window, position) and distances within PUSH_ATOL
+    of max(1, distance), the prototype vectors within PUSH_ATOL.  A winner
+    may differ only where the two sides' best distances agree so (a tie
+    within rounding; counted).  Planted: the vectors of another
+    prototype."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 15)
+    ds = cohort_dataset(workdir, make_windows(rng, 56), [0, 1] * 4, 7)
+    base = ppnet_trainer("cpu").build_model().reset_parameters(
+        torch.Generator().manual_seed(SEED + 1)).state_dict()
+    sides = {}
+    for dev in (device, "cpu"):
+        trainer = ppnet_trainer(dev)
+        trainer.push_infos = []
+        model = trainer.build_model()
+        model.load_state_dict(base)
+        model.to(dev)
+        info = trainer.push_prototypes(model, ds)
+        sides[dev] = (info, model.prototype_vectors.detach().cpu().double())
+    (d_info, d_vec), (c_info, c_vec) = sides[device], sides["cpu"]
+    if any(i is None for i in d_info + c_info):
+        raise AssertionError("a prototype found no window of its class")
+    ties, failed = [], []
+    for j, (a, b) in enumerate(zip(d_info, c_info)):
+        close = abs(a["distance"] - b["distance"]) <= PUSH_ATOL * max(
+            1.0, abs(b["distance"]))
+        same = (a["window_index"], a["flat_pos"]) == (b["window_index"],
+                                                      b["flat_pos"])
+        if not close:
+            failed.append("prototype {}: {} vs {}".format(j, a, b))
+        elif not same:
+            ties.append(j)
+    same = [j for j in range(len(d_info)) if j not in ties]
+    vec_err = float((d_vec[same] - c_vec[same]).abs().max())
+    planted = float((d_vec - c_vec.roll(1, dims=0)).abs().max())
+    if planted <= PUSH_ATOL:
+        raise AssertionError("the push check would pass another "
+                             "prototype's vector")
+    if vec_err > PUSH_ATOL:
+        failed.append("prototype vectors: {}".format(vec_err))
+    fields = {"windows": 56, "prototypes": len(d_info), "atol": PUSH_ATOL,
+              "winners_equal": len(same), "ties_within_atol": ties,
+              "max_abs_vectors": vec_err,
+              "max_rel_distance": max(abs(a["distance"] - b["distance"])
+                                      / max(1.0, abs(b["distance"]))
+                                      for a, b in zip(d_info, c_info)),
+              "planted_other_prototype": planted}
+    if failed:
+        raise AssertionError("push card vs CPU: " + "; ".join(failed))
+    return fields
+
+
+def ppnet_graph_vs_eager(workdir, device):
+    """GRAPH_STEPS steps of each stage in turn (warm, joint, last) from
+    one fold state, then an eval epoch, graphed and eager: float32 with
+    dropout off, losses and their parts, params and eval logits within
+    GRAPH_ATOL; bfloat16 with dropout on, losses within GRAPH_ATOL and
+    the generators equal.  Returns (fields, failures, the graphed bf16
+    runners)."""
+    import torch
+
+    from deepards_tpu_torch.train.loop import _epoch_order
+    from deepards_tpu_torch.train.protopnet_trainer import STAGES
+
+    rng = np.random.default_rng(SEED + 16)
+    n = GRAPH_STEPS * BATCH
+    ds = cohort_dataset(workdir, make_windows(rng, n), [0, 1] * 4, n // 8)
+    ids, masks = _epoch_order(rng.permutation(n), BATCH)
+    masks[-1, -3:] = 0.0
+    fields = {"steps_a_stage": GRAPH_STEPS, "atol": GRAPH_ATOL}
+    failed, timed = [], None
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype, dropout in (("float32", False), ("bfloat16", True)):
+            runs = {}
+            for graphs in (False, True):
+                trainer = ppnet_trainer(device, "--compute-dtype", dtype)
+                state = trainer.new_state(0)
+                runners = trainer.make_runners(
+                    state, ds, dropout=dropout,
+                    graphed=graphs and trainer.device.type == "cuda")
+                losses = [trainer._device_steps(runners[stage], ds, ids,
+                                                masks, True)[0].cpu()
+                          for stage in STAGES]
+                _, outs = trainer._device_steps(runners["last"], ds, ids,
+                                                masks, False)
+                runs[graphs] = (torch.stack(losses),
+                                snapshot(state.model.state_dict()),
+                                outs.cpu(), state.generator.get_state())
+                if graphs and dropout:
+                    timed = runners
+            e_loss, e_params, e_out, e_rng = runs[False]
+            g_loss, g_params, g_out, g_rng = runs[True]
+            loss_err = float((g_loss - e_loss).abs().max())
+            param_err = max(float((g_params[k] - e_params[k]).abs().max())
+                            for k in e_params)
+            out_err = float((g_out - e_out).abs().max())
+            same_rng = bool(torch.equal(g_rng, e_rng))
+            fields[dtype] = {"dropout": dropout, "max_abs_loss": loss_err,
+                             "max_abs_params": param_err,
+                             "max_abs_eval_logits": out_err,
+                             "generator_state_equal": same_rng}
+            if loss_err > GRAPH_ATOL or (not dropout and (
+                    param_err > GRAPH_ATOL or out_err > GRAPH_ATOL)) or (
+                    dropout and not same_rng):
+                failed.append("{}: {}".format(dtype, fields[dtype]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return fields, failed, timed
+
+
+def push_seconds(workdir, device):
+    """The push over a MEASURE_WINDOWS-window cache (full width, batch
+    16, 256 batches) on the device: seconds."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 17)
+    ds = cohort_dataset(workdir, make_windows(rng, MEASURE_WINDOWS),
+                        [0, 1] * 32, MEASURE_WINDOWS // 64)
+    trainer = ppnet_trainer(device)
+    trainer.push_infos = []
+    model = trainer.build_model().reset_parameters(
+        torch.Generator().manual_seed(SEED)).to(device)
+    trainer._get_device_cache(ds)  # uploaded once, as in training
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.push_prototypes(model, ds)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"windows": MEASURE_WINDOWS, "batches": MEASURE_WINDOWS // BATCH,
+            "seconds": seconds,
+            "windows_per_s": MEASURE_WINDOWS / seconds}
+
+
+def gradcam_card_vs_cpu(device):
+    """``MaxMinNormCam`` over CAM_SEQUENCES full-width sequences of a
+    seeded cnn_linear/densenet18 on the device and on the CPU: the raw
+    cams within CAM_ATOL, but those of a window where a feature crosses
+    0 on one side only (the head's ReLU makes the cam jump there; counted,
+    at most 1% of the cams), the outputs within CAM_ATOL, the uint8 cams
+    (count of elements apart); cams/s of the whole call and of the device
+    pass.  Planted: the other class's cams."""
+    import torch
+
+    from deepards_tpu_torch.explain.gradcam import MaxMinNormCam
+    from deepards_tpu_torch.models import densenet1d, heads
+
+    rng = np.random.default_rng(SEED + 18)
+    xs = make_windows(rng, CAM_SEQUENCES)
+    xs = (xs - xs.mean()) / xs.std()
+    targets = np.ones(CAM_SEQUENCES, np.int64)
+    model = heads.CNNLinearNetwork(densenet1d.densenet18(), S)
+    model.reset_parameters(torch.Generator().manual_seed(SEED + 5))
+    sides = {}
+    for dev in (device, "cpu"):
+        cam = MaxMinNormCam(copy.deepcopy(model).to(dev))
+        raw, outs = cam.read_cams_batch(xs, targets)
+        normed, _ = cam.generate_read_cams_batch(xs, targets)
+        positive = cam._fmaps_and_grads(xs, targets)[0].cpu().numpy() > 0
+        sides[dev] = (raw, outs, normed, cam, positive)
+    (d_raw, d_out, d_norm, d_cam, d_pos), (c_raw, c_out, c_norm, _,
+                                           c_pos) = sides[device], sides["cpu"]
+    # a feature within rounding of 0 may pass the head's ReLU on one side
+    # only: its gradient, and so the cam of its window, jumps there
+    flipped = (d_pos != c_pos).any(axis=(2, 3))  # (sequences, S)
+    other, _ = d_cam.read_cams_batch(xs, 1 - targets)
+    err = float(np.abs(d_raw - c_raw)[~flipped].max())
+    fields = {"sequences": CAM_SEQUENCES, "atol": CAM_ATOL,
+              "max_abs_cam": err,
+              "cams_with_a_relu_flip": int(flipped.sum()),
+              "max_abs_cam_with_a_relu_flip": float(
+                  np.abs(d_raw - c_raw)[flipped].max()) if flipped.any()
+              else 0.0,
+              "cam_scale": float(np.abs(c_raw).max()),
+              "max_abs_output": float(np.abs(d_out - c_out).max()),
+              "uint8_elements_apart": int((d_norm != c_norm).sum()),
+              "uint8_max_apart": int(np.abs(d_norm.astype(int)
+                                            - c_norm.astype(int)).max()),
+              "planted_other_class": float(np.abs(other - c_raw).max())}
+    if fields["planted_other_class"] <= CAM_ATOL:
+        raise AssertionError("the cam check would pass the other class's "
+                             "cams")
+    if err > CAM_ATOL or fields["max_abs_output"] > CAM_ATOL or \
+            d_raw.shape != (CAM_SEQUENCES, S, 7) or \
+            flipped.mean() > 0.01:
+        raise AssertionError("gradcam card vs CPU: {}".format(fields))
+    if device == "cuda":
+        fields["call_ms"] = cuda_ms(
+            lambda: d_cam.generate_read_cams_batch(xs, targets), warmup=1,
+            reps=5)
+        fields["device_pass_ms"] = cuda_ms(
+            lambda: d_cam._fmaps_and_grads(xs, targets), warmup=1, reps=5)
+        fields["cams_per_s"] = CAM_SEQUENCES * 1e3 / fields["call_ms"]
+        fields["device_pass_cams_per_s"] = (CAM_SEQUENCES * 1e3
+                                            / fields["device_pass_ms"])
+        fields["device_pass"] = step_profile(
+            lambda: d_cam._fmaps_and_grads(xs, targets), reps=5)
+    return fields
+
+
+def phase_config5(workdir, device="cuda"):
+    """Config 5 (ProtoPNet over densenet18) on the device: the CLI with
+    CONFIG5_CUT (every stage, two pushes), one step of each stage card vs
+    CPU, the push card vs CPU, graphed vs eager for each stage, the timed
+    bf16 step of each stage and the push over MEASURE_WINDOWS windows, and
+    GradCAM over CAM_SEQUENCES sequences card vs CPU with cams/s."""
+    t0 = time.perf_counter()
+    trainer, _, run = train_config(workdir, device, "config5", epochs=3,
+                                   extra=CONFIG5_CUT)
+    pushes = trainer.push_infos
+    if len(pushes) != 2 or any(i is None for p in pushes for i in p):
+        raise AssertionError("config5 pushes: {}".format(pushes))
+    meters = trainer.results.reporting.meters
+    aux = {m: len(meters["{}_fold_4".format(m)].values)
+           for m in ("cls_loss", "clst_loss", "sep_loss", "l1_loss")}
+    run["cut"] = CONFIG5_CUT
+    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
+              "flags": CONFIG_FLAGS["config5"], "run": run,
+              "pushes": len(pushes), "aux_meter_steps_fold_4": aux,
+              "last_push_info": pushes[-1][:4],
+              "card_vs_cpu": ppnet_card_vs_cpu(device),
+              "push_card_vs_cpu": push_card_vs_cpu(workdir, device)}
+    fields["graph_vs_eager"], failed, runners = ppnet_graph_vs_eager(
+        workdir, device)
+    fields["gradcam"] = gradcam_card_vs_cpu(device)
+    if device == "cuda":
+        fields["numbers"] = {
+            "batch": BATCH, "compute_dtype": "bfloat16",
+            **{stage: step_profile(runner.train)
+               for stage, runner in runners.items()},
+            "eval": step_profile(runners["last"].eval),
+            "push": push_seconds(workdir, device)}
+        print("numbers config5: {} ms a joint step, push {} s, {} cams/s"
+              .format(fields["numbers"]["joint"]["ms"],
+                      fields["numbers"]["push"]["seconds"],
+                      fields["gradcam"]["cams_per_s"]), flush=True)
+    fields["phase_seconds"] = time.perf_counter() - t0
+    emit("config5", **fields)
+    if failed:
+        raise AssertionError("config5 graphed vs eager: " + "; ".join(failed))
+
+
 # the DTW heterogeneity sweep: the reference hetero runner's cohort of 80
 # patients (its ``hetero`` defaults: train_n 40, test_n 6), 60 windows each
 SIM_PATIENTS, SIM_WINDOWS, SIM_N_RANDOM = 80, 60, 50
@@ -1816,6 +2799,12 @@ def main():
         for name in ("config2", "config3", "config4"):
             dtw_ops.launches = 0
             phase_config(work, name)
+            by_path[name] = dtw_ops.launches
+        for name, phase in (("config4_unshuffled", phase_config4_unshuffled),
+                            ("config7", phase_config7),
+                            ("config5", phase_config5)):
+            dtw_ops.launches = 0
+            phase(work)
             by_path[name] = dtw_ops.launches
     training = {name: by_path[name] for name in CONFIG_FLAGS}
     emit("train_path_kernel_launches", dtw=training)

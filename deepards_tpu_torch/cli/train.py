@@ -163,7 +163,7 @@ def build_parser():
     parser.add_argument("--seed", type=int)
     parser.add_argument("--results-dir")
     flag("--parallel-folds",
-         "train all kfolds simultaneously (not ported yet)")
+         "train all kfolds simultaneously (a standard classifier)")
     parser.add_argument("--fused-steps", type=int,
                         help="host epochs gather, augment and copy this "
                         "many batches at a time (default 8); every step "

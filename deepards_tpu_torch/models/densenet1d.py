@@ -90,6 +90,23 @@ class DenseNet1D(nn.Module):
         self.norm5 = BatchStatNorm(n)
         self.n_out_filters = n
 
+    def conv_info(self):
+        """Kernel sizes, strides and paddings of every conv and pool in
+        order, for ProtoPNet's receptive-field arithmetic: the stem's conv
+        and max pool, each dense layer's two convs, each transition's conv
+        and average pool (reference: deepards/models/densenet.py:169-177)."""
+        ks, ss, ps = [7, 3], [2, 2], [3, 1]
+        for i, layers in enumerate(self.block_config):
+            for _ in range(layers):
+                ks += [1, 3]
+                ss += [1, 1]
+                ps += [0, 1]
+            if i != len(self.block_config) - 1:
+                ks += [1, 2]
+                ss += [1, 2]
+                ps += [0, 0]
+        return ks, ss, ps
+
     def reset_parameters(self, generator=None):
         """The JAX package's initialization: conv kernels from
         ``conv_kernel_init``, norm scale 1 and bias 0."""

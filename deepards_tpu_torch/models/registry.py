@@ -2,15 +2,22 @@
 
 Counterpart of ``deepards_tpu/models/registry.py``, holding the entries
 the port has so far: the densenet and resnet backbones, ``cnn_linear``,
-``cnn_regressor``, ``metadata_only``, ``cnn_lstm`` and
-``cnn_lstm_double_linear``.  The JAX package's other entries raise
-``NotImplementedError``.  ``conf`` is a mapping of configuration keys
-(``base_network``, ``bn_scope``, ``initial_planes``, ...).
+``cnn_regressor``, ``metadata_only``, ``cnn_lstm``,
+``cnn_lstm_double_linear`` and ``protopnet``.  The JAX package's other
+entries raise ``NotImplementedError``.  ``conf`` is a mapping of
+configuration keys (``base_network``, ``bn_scope``, ``initial_planes``,
+...).
 """
 from dataclasses import dataclass
 from typing import Callable
 
-from deepards_tpu_torch.models import densenet1d, heads, recurrent, resnet1d
+from deepards_tpu_torch.models import (
+    densenet1d,
+    heads,
+    protopnet1d,
+    recurrent,
+    resnet1d,
+)
 
 
 def _densenet_ctor(name):
@@ -59,8 +66,7 @@ NOT_PORTED = {
     **dict.fromkeys(
         ("cnn_to_nested_rnn", "cnn_to_nested_lstm",
          "cnn_to_nested_transformer"), "nested network (nested trainer)"),
-    **dict.fromkeys(("protopnet", "protopnet_2d"),
-                    "network of the protopnet trainer"),
+    "protopnet_2d": "network of the protopnet trainer",
     **dict.fromkeys(
         ("siamese_cnn_linear", "siamese_cnn_lstm",
          "siamese_cnn_transformer"), "network of the siamese trainer"),
@@ -104,6 +110,7 @@ class NetworkSpec:
     uses_metadata: bool = False  # reads the metadata input
     stateful_lstm: bool = False  # carries its LSTM state when unshuffled
     eval_dropout_off: bool = False  # eval runs with dropout off
+    trainer: str = "standard"  # standard|protopnet
 
 
 def _bn_scope(conf):
@@ -168,6 +175,17 @@ NETWORK_MAP = {
         lambda conf, bb, s, m=0: recurrent.CNNLSTMDoubleLinearNetwork(
             breath_block=bb, n_sub_batches=s, **_lstm_options(conf, m)),
         uses_metadata=True,
+    ),
+    "protopnet": NetworkSpec(
+        "protopnet",
+        lambda conf, bb, s, m=0: protopnet1d.construct_ppnet(
+            bb, sub_batch_size=s,
+            n_prototypes=conf.get("n_prototypes", 10) or 10,
+            incorrect_strength=conf.get("incorrect_strength", -0.5) or -0.5,
+            average_linear=bool(conf.get("average_linear_layer"))),
+        # its trainer evaluates with dropout off; so do serve and predict
+        eval_dropout_off=True,
+        trainer="protopnet",
     ),
 }
 

@@ -23,6 +23,10 @@ Randomness: numpy ``default_rng(seed)`` streams for the permutations, the
 augmentation and the oversampling (those of the JAX package, drawn in its
 order, so both draw the same batches and warps), a ``torch.Generator``
 per fold for the init, and one per fold on the device for dropout.
+A network with an LSTM carry under ``unshuffled`` (cnn_lstm) takes the
+stateful fold instead: one window a step in patient order, the carry kept
+across a patient's windows (``run_stateful_fold``).  ``make_trainer``
+also gives the parallel-fold and ProtoPNet trainers.
 """
 import contextlib
 import os
@@ -62,20 +66,84 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": None, None: None}
 
 
 def make_trainer(conf, **kwargs):
-    """The trainer a configuration asks for: the standard ``Trainer``, or
-    ``NotImplementedError`` for what the port does not have yet
-    (``parallel_folds``; the stateful unshuffled fold of an LSTM head,
-    ``deepards_tpu/train/loop.py:437-441,754-987``; the networks of the
-    other trainers, which ``get_network_spec`` refuses)."""
-    if conf.get("parallel_folds"):
-        raise NotImplementedError(
-            "parallel_folds is not ported to deepards_tpu_torch yet")
-    if conf.get("unshuffled") and get_network_spec(
-            conf.network).stateful_lstm:
-        raise NotImplementedError(
-            "the stateful --unshuffled fold of {} is not ported to "
-            "deepards_tpu_torch yet".format(conf.network))
+    """The trainer a configuration asks for, dispatched as the JAX
+    package's (``deepards_tpu/train/loop.py:39-52``): all folds at once
+    with ``parallel_folds`` for a network of the standard trainer, the
+    ProtoPNet trainer for its network, else ``Trainer``.  The networks of
+    the trainers not ported yet are refused by ``get_network_spec``."""
+    spec = get_network_spec(conf.network)
+    if conf.get("parallel_folds") and spec.trainer == "standard":
+        from deepards_tpu_torch.train.parallel_folds import (
+            ParallelFoldTrainer,
+        )
+
+        return ParallelFoldTrainer(conf, **kwargs)
+    if spec.trainer == "protopnet":
+        from deepards_tpu_torch.train.protopnet_trainer import (
+            ProtoPNetTrainer,
+        )
+
+        return ProtoPNetTrainer(conf, **kwargs)
     return Trainer(conf, **kwargs)
+
+
+def make_stateful_steps(loss_fn, transform=None, compute_dtype=None,
+                        dropout_active=True, eval_dropout_active=False):
+    """(train_step, eval_step) of the stateful unshuffled fold
+    (``deepards_tpu/train/loop.py:754-864``), each called as ``(state,
+    data, target, mask, carry_c, carry_h, reset, meta=None)`` over one
+    window: the LSTM starts from the carry buffers times ``1 - reset``
+    (zero where the patient changes), and its final carry, detached, is
+    written back into them.  The loss is unweighted and the norms see no
+    row mask (a batch of one window has no pad row); ``mask`` is unused.
+    The train step returns the loss, the eval step the loss and the (1, S,
+    2) logits.  Neither reads a value back to the host, so both can be
+    captured in a CUDA graph."""
+
+    def forward(state, data, target, carry_c, carry_h, reset, meta, active):
+        keep = 1 - reset
+        carry = (carry_c * keep, carry_h * keep)
+        if transform is not None:
+            data = transform(data)
+        model = state.model
+        args = (not active, state.generator, meta, carry)
+        if compute_dtype is not None:
+            params = {name: p.to(compute_dtype)
+                      for name, p in model.named_parameters()}
+            logits, new_carry = torch.func.functional_call(
+                model, params, (data.to(compute_dtype),) + args)
+        else:
+            logits, new_carry = model(data, *args)
+        if compute_dtype is not None:
+            logits = logits.float()
+        target = target[:, None, :].expand(-1, logits.shape[1], -1)
+        return loss_fn(logits, target), logits, new_carry
+
+    def hand_on(carry_c, carry_h, new_carry):
+        carry_c.copy_(new_carry[0].detach())
+        carry_h.copy_(new_carry[1].detach())
+
+    def train_step(state, data, target, mask, carry_c, carry_h, reset,
+                   meta=None):
+        loss, _, new_carry = forward(state, data, target, carry_c, carry_h,
+                                     reset, meta, dropout_active)
+        state.optimizer.zero_grad()
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        hand_on(carry_c, carry_h, new_carry)
+        return loss.detach()
+
+    @torch.no_grad()
+    def eval_step(state, data, target, mask, carry_c, carry_h, reset,
+                  meta=None):
+        loss, logits, new_carry = forward(state, data, target, carry_c,
+                                          carry_h, reset, meta,
+                                          eval_dropout_active)
+        hand_on(carry_c, carry_h, new_carry)
+        return loss, logits
+
+    return train_step, eval_step
 
 
 def _pad_batch(batch, batch_size):
@@ -409,6 +477,9 @@ class Trainer:
             self.restore_state(state, conf.load_checkpoint)
         if conf.get("load_base_network"):
             self.load_base_network(state, conf.load_base_network)
+        if self.spec.stateful_lstm and conf.get("unshuffled"):
+            return self.run_stateful_fold(state, train_dataset, test_dataset,
+                                          fold_num)
         train_step, eval_step = make_train_step(
             self.loss_fn,
             transform=BatchPipeline(train_dataset, self.device),
@@ -443,6 +514,125 @@ class Trainer:
             self.resume_meta = None  # later folds run from scratch
         self.final_state = state
         return state
+
+    # -- the stateful unshuffled fold ----------------------------------------
+
+    def make_stateful_runner(self, state, dataset, dropout=True,
+                             graphed=None):
+        """A ``StepRunner`` of ``make_stateful_steps`` over batches of one
+        window, with the carry buffers (c, h) and the reset flag: float32
+        as the JAX package's zero carry, float64 for a float64 model.
+        ``dropout`` False turns it off in training too; ``graphed`` None
+        captures on the card."""
+        train_step, eval_step = make_stateful_steps(
+            self.loss_fn, transform=BatchPipeline(dataset, self.device),
+            compute_dtype=self.compute_dtype, dropout_active=dropout,
+            eval_dropout_active=dropout and not self.spec.eval_dropout_off)
+        model = state.model
+        cache = dataset.cache
+        dtype = torch.promote_types(next(model.parameters()).dtype,
+                                    torch.float32)
+        carry = (1, model.lstm.hidden_size)
+        extra = {"carry_c": torch.zeros(carry, dtype=dtype,
+                                        device=self.device),
+                 "carry_h": torch.zeros(carry, dtype=dtype,
+                                        device=self.device),
+                 "reset": torch.ones(1, device=self.device)}
+        meta_shape = None
+        if self.meta_features:
+            meta_shape = (1,) + cache.meta.shape[1:]
+        if graphed is None:
+            graphed = self.device.type == "cuda"
+        return StepRunner(state, train_step, eval_step,
+                          (1,) + cache.data.shape[1:],
+                          target_width=cache.target.shape[1],
+                          meta_shape=meta_shape, graphed=graphed,
+                          extra_inputs=extra)
+
+    def run_stateful_fold(self, state, train_dataset, test_dataset,
+                          fold_num):
+        """cnn_lstm with ``unshuffled``: every epoch visits the windows one
+        at a time in the ground truth's (patient) order, the LSTM carry
+        kept across a patient's windows and reset where the patient
+        changes (``deepards_tpu/train/loop.py:754-987``).  Train losses go
+        to the loss meter, test losses to ``test_loss``, and each window's
+        S per-breath predictions to the votes."""
+        conf = self.conf
+        runner = self.make_stateful_runner(state, train_dataset)
+        epochs = conf.get("epochs", 10)
+        resume = self.resume_meta
+        if not (resume and resume["fold"] == fold_num):
+            resume = None
+        start_epoch = resume["epoch"] if resume else 1
+        with self.deferred_fetch():
+            for epoch_num in range(start_epoch, epochs + 1):
+                if not conf.get("no_train"):
+                    self.run_stateful_epoch(runner, train_dataset, True,
+                                            fold_num, epoch_num)
+                if not conf.get("no_test_after_epochs") or epoch_num == epochs:
+                    self.run_stateful_epoch(runner, test_dataset, False,
+                                            fold_num, epoch_num)
+                if conf.get("save_model_per_epoch") and conf.get("save_model"):
+                    self.save_checkpoint(state, fold_num, epoch_num)
+        if conf.get("save_model"):
+            self.save_checkpoint(state, fold_num, None)
+        if resume:
+            self.resume_meta = None
+        self.final_state = state
+        return state
+
+    def run_stateful_epoch(self, runner, dataset, train, fold_num,
+                           epoch_num):
+        """One pass over ``dataset``'s windows in the ground truth's order
+        (one window with ``debug``), each gathered on the device into the
+        runner's buffers with its reset flag: 1 at the first window and
+        where the patient changes."""
+        truth = dataset.get_ground_truth()
+        order = np.asarray(truth.index)
+        resets = np.ones(len(order), np.float32)
+        resets[1:] = truth.patient[1:] != truth.patient[:-1]
+        if self.conf.get("debug"):
+            order, resets = order[:1], resets[:1]
+        dev = self._get_device_cache(dataset)
+        ids = torch.from_numpy(order).to(self.device)
+        resets = torch.from_numpy(resets).to(self.device)
+        inputs = runner.inputs
+        losses = outs = None
+        for i in range(len(order)):
+            for key, table in dev.items():
+                torch.index_select(table, 0, ids[i:i + 1], out=inputs[key])
+            inputs["reset"].copy_(resets[i:i + 1])
+            if train:
+                losses = _store(losses, i, runner.train(), len(order))
+            else:
+                loss, out = runner.eval()
+                losses = _store(losses, i, loss, len(order))
+                outs = _store(outs, i, out[0], len(order))
+        if losses is None:
+            return
+        if train:
+            self._defer(self._record_stateful_losses, losses, "loss",
+                        fold_num)
+            return
+        self._defer(self._record_stateful_losses, losses, "test_loss",
+                    fold_num)
+        self._defer(self._record_stateful_eval, outs, order, dataset,
+                    fold_num, epoch_num)
+
+    def _record_stateful_losses(self, losses, meter, fold_num):
+        for loss in losses.cpu().numpy():
+            self.results.update_meter(meter, fold_num, float(loss))
+
+    def _record_stateful_eval(self, outs, order, dataset, fold_num,
+                              epoch_num):
+        """Each window's S per-breath predictions, its index repeated S
+        times."""
+        outs = outs.cpu().numpy()  # (n, S, 2)
+        self.last_eval = {"index": order, "logits": outs}
+        preds = outs.argmax(axis=-1).reshape(-1)
+        self.record_classifier_results(
+            preds, np.repeat(order, outs.shape[1]), dataset, fold_num,
+            epoch_num)
 
     # -- deferred recording ---------------------------------------------------
 
@@ -511,24 +701,27 @@ class Trainer:
     def _device_steps(self, runner, dataset, ids, masks, train):
         """One step per row of ``ids`` over the device cache, each batch
         gathered into the runner's buffers on the device.  Returns the
-        (steps,) losses and, for eval, the (steps, B, ...) outputs, on the
+        (steps,) losses (``(steps,) + shape`` of what a train step
+        returns) and, for eval, the (steps, B, ...) outputs, on the
         device."""
         dev = self._get_device_cache(dataset)
         ids = torch.from_numpy(ids).to(self.device)
         masks = torch.from_numpy(masks).to(self.device)
         steps = ids.shape[0]
-        losses = torch.empty(steps, device=self.device)
-        outs = None
+        losses = outs = None
         inputs = runner.inputs
         for i in range(steps):
             for key, table in dev.items():
                 torch.index_select(table, 0, ids[i], out=inputs[key])
             inputs["mask"].copy_(masks[i])
             if train:
-                losses[i] = runner.train()
+                losses = _store(losses, i, runner.train(), steps)
             else:
-                losses[i], out = runner.eval()
+                loss, out = runner.eval()
+                losses = _store(losses, i, loss, steps)
                 outs = _store(outs, i, out, steps)
+        if losses is None:  # an empty split
+            losses = torch.empty(0, device=self.device)
         return losses, outs
 
     def _run_train_epoch_device_cache(self, runner, dataset, fold_num,

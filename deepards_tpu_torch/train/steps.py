@@ -171,12 +171,16 @@ class StepRunner:
     """A fold's train and eval steps over static input buffers.
 
     ``inputs`` holds one batch: ``data`` (B, S, C, L), ``target`` (B,
-    ``target_width``), ``mask`` (B,) and, with ``meta_shape``, ``meta``.
-    The caller fills them in place (``copy_``, ``index_select(out=...)``)
-    and then calls ``train()`` (the loss) or ``eval()`` (the loss and the
-    model's output: (B, 2) logits, (B, S, 2) for a per-breath head, (B,
-    T) for a regressor).  What these return may be the graph's static
-    outputs: copy it out before the next call.
+    ``target_width``), ``mask`` (B,) and, with ``meta_shape``, ``meta``;
+    ``extra_inputs`` adds buffers of the caller's (or replaces these):
+    the stateful fold's LSTM carry, the fold-stacked batch of parallel
+    folds.  The caller fills them in place (``copy_``,
+    ``index_select(out=...)``) and then calls ``train()`` (the loss) or
+    ``eval()`` (the loss and the model's output: (B, 2) logits, (B, S, 2)
+    for a per-breath head, (B, T) for a regressor).  What these return
+    may be the graph's static outputs: copy it out before the next call.
+    A step may write its inputs in place (the carry it hands on).
+    ``eval_step`` None: a runner of train steps only.
 
     graphed: capture each step as a ``torch.cuda.CUDAGraph``.  A few
     eager steps on a side stream come first, as capture asks, with
@@ -185,9 +189,9 @@ class StepRunner:
     in place afterwards, and optimizer state that the warm-up created
     lazily is zeroed: a zero SGD momentum buffer gives 0 * 0.9 + g = g
     at the first step, what torch's first step clones, and zero Adam
-    moments and step count are Adam's fresh state.  The generator is
-    registered with both graphs, so every replay draws new dropout masks
-    and advances it as an eager step does.  Capture binds the tensors it
+    moments and step count are Adam's fresh state; the input buffers are
+    restored too.  The generator is registered with the graphs, so every
+    replay draws new dropout masks and advances it as an eager step does.  Capture binds the tensors it
     reads: the params, the optimizer state and the buffers must be
     changed in place from then on.  A capture that fails raises.
     """
@@ -195,7 +199,8 @@ class StepRunner:
     WARMUP_STEPS = 3  # eager steps before a capture
 
     def __init__(self, state, train_step, eval_step, data_shape,
-                 target_width=2, meta_shape=None, graphed=False):
+                 target_width=2, meta_shape=None, graphed=False,
+                 extra_inputs=None):
         self.state = state
         self._train_step = train_step
         self._eval_step = eval_step
@@ -208,6 +213,7 @@ class StepRunner:
         }
         if meta_shape is not None:
             self.inputs["meta"] = torch.zeros(meta_shape, device=device)
+        self.inputs.update(extra_inputs or {})
         self.graphs = None
         if graphed:
             if device.type != "cuda":
@@ -238,6 +244,7 @@ class StepRunner:
                      for p, s in opt_state.items()}
         saved_rng = state.generator.get_state()
         saved_step = state.step
+        saved_inputs = {k: v.clone() for k, v in self.inputs.items()}
 
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -247,7 +254,8 @@ class StepRunner:
             with torch.cuda.stream(side):
                 for _ in range(self.WARMUP_STEPS):
                     self._train_step(state, **self.inputs)
-                    self._eval_step(state, **self.inputs)
+                    if self._eval_step is not None:
+                        self._eval_step(state, **self.inputs)
         finally:
             torch.cuda.set_sync_debug_mode(sync_mode)
         torch.cuda.current_stream().wait_stream(side)
@@ -263,17 +271,21 @@ class StepRunner:
                             v.copy_(before[k])
                         else:
                             v.zero_()
+            for k, v in saved_inputs.items():
+                self.inputs[k].copy_(v)
         state.generator.set_state(saved_rng)
         state.optimizer.zero_grad()  # grads are allocated by the capture
 
-        graphs = {"train": torch.cuda.CUDAGraph(),
-                  "eval": torch.cuda.CUDAGraph()}
+        graphs = {"train": torch.cuda.CUDAGraph()}
+        if self._eval_step is not None:
+            graphs["eval"] = torch.cuda.CUDAGraph()
         for graph in graphs.values():
             graph.register_generator_state(state.generator)
         with torch.cuda.graph(graphs["train"]):
             self._train_loss = self._train_step(state, **self.inputs)
-        with torch.cuda.graph(graphs["eval"]):
-            self._eval_loss, self._eval_out = self._eval_step(
-                state, **self.inputs)
+        if self._eval_step is not None:
+            with torch.cuda.graph(graphs["eval"]):
+                self._eval_loss, self._eval_out = self._eval_step(
+                    state, **self.inputs)
         state.step = saved_step
         self.graphs = graphs

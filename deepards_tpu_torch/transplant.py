@@ -18,7 +18,10 @@ fixed names, and its indexed kinds, where ``Kind_k`` is entry k of a list.
 The backbone's family is ResNet when the tree has a ``BasicBlock_i`` or
 ``Bottleneck_i``, else DenseNet.  A network's ``Dense_0`` is its ``head``,
 unless it has a chain of Dense layers (``Dense_1`` too), which are
-``layers.k``; ``OptimizedLSTMCell_0`` is its ``lstm``.
+``layers.k``; ``OptimizedLSTMCell_0`` is its ``lstm``.  A PPNet's
+``add_on_layers/Conv_k`` are ``add_on_layers.convs.k``, its
+``last_layer`` and ``prototype_vectors`` keep their names (the
+prototypes their layout too).
 
 Layouts: conv kernels go from (K, Cin, Cout) to (Cout, Cin, K), Dense
 kernels (in, out) are transposed to (out, in), norm scale/bias become
@@ -63,11 +66,17 @@ _LSTM_CELL = Family(fixed={
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
+# PPNet's add-on stack: flax Convs (1,) named in creation order
+_ADD_ON = Family(indexed={"Conv": ("convs", None)})
+
+
 def _network(backbone, dense_chain):
     dense = ({} if dense_chain else {"Dense_0": ("head", None)})
     return Family(
         fixed={"breath_block": ("breath_block", backbone),
-               "OptimizedLSTMCell_0": ("lstm", _LSTM_CELL), **dense},
+               "OptimizedLSTMCell_0": ("lstm", _LSTM_CELL),
+               "add_on_layers": ("add_on_layers", _ADD_ON),
+               "last_layer": ("last_layer", None), **dense},
         indexed={"Dense": ("layers", None)} if dense_chain else {})
 
 
@@ -78,12 +87,15 @@ def _root_family(paths):
                  for n in names)
     backbone = _RESNET if resnet else _DENSENET
     top = {path[0] for path in paths}
-    if not top & {"breath_block", "OptimizedLSTMCell_0", "Dense_0"}:
+    if not top & {"breath_block", "OptimizedLSTMCell_0", "Dense_0",
+                  "prototype_vectors"}:
         return backbone  # a bare backbone tree
     return _network(backbone, "Dense_1" in top)
 
 
 def _port_key(path, family):
+    if path == ("prototype_vectors",):  # PPNet's (P, C, K), as it is
+        return path[0]
     *modules, leaf = path
     out = []
     for name in modules:

@@ -452,8 +452,8 @@ def test_network_without_backbone_trains(synthetic_cohort, tmp_path):
 
 
 @pytest.mark.parametrize("over", [
-    dict(network="cnn_lstm", unshuffled=True),
-    dict(network="cnn_linear", parallel_folds=True),
+    dict(network="protopnet_2d"),
+    dict(network="siamese_cnn_lstm", parallel_folds=True),
     dict(network="cnn_transformer"), dict(network="lstm_only"),
     dict(network="cnn_to_nested_lstm"),
 ])
@@ -490,6 +490,7 @@ EXPERIMENTS = os.path.join(os.path.dirname(os.path.dirname(
     ("config2", "padded_breath_by_breath_resnet18.yml"),
     ("config3", "bm_pretraining_regression.yml"),
     ("config4", "unpadded_centered_nb20_cnn_lstm.yml"),
+    ("config5", "unpadded_centered_nb20_protopnet.yml"),
 ])
 def test_chip_smoke_flags_give_the_config(name, yml):
     """chip_smoke.py's flags give the yml's configuration (the card's

@@ -61,7 +61,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.train.loader",
             "deepards_tpu_torch.train.loop",
             "deepards_tpu_torch.train.losses",
-            "deepards_tpu_torch.train.steps"} <= set(report["modules"])
+            "deepards_tpu_torch.train.steps",
+            "deepards_tpu_torch.train.parallel_folds",
+            "deepards_tpu_torch.train.protopnet_trainer",
+            "deepards_tpu_torch.models.protopnet1d",
+            "deepards_tpu_torch.explain.gradcam"} <= set(report["modules"])
     forbidden = [
         name for name in report["loaded"]
         if name == "deepards_tpu" or name.startswith("deepards_tpu.")
@@ -151,13 +155,10 @@ rows, votes = predict(["--checkpoint", work + "/models/config4-fold0",
                        work + "/v.json"] + chip_smoke.CONFIG4_FLAGS + small
                       + folds)
 report["predict_rows"] = len(rows)
-refused = []
 for extra in (["--unshuffled"], ["--parallel-folds"]):
-    try:
-        main(chip_smoke.CONFIG4_FLAGS + small + folds + extra)
-    except NotImplementedError as exc:
-        refused.append(str(exc))
-report["refused"] = refused
+    trainer = main(chip_smoke.CONFIG4_FLAGS + small + folds + extra)
+    report[extra[0]] = [len(trainer.results.get_meter("loss", f).values)
+                        for f in (0, 1)]
 print(json.dumps(report))
 """
 
@@ -167,7 +168,8 @@ def test_configs_2_3_4_train_without_pandas_sklearn_or_yaml(tmp_path):
     (narrowed: resnet18 at 8 initial planes, S = 4 for the k-fold
     configs) and ``cli.predict`` on config 4's checkpoint, with pandas,
     scikit-learn, PyYAML, JAX and deepards_tpu blocked; config 4 with
-    ``--unshuffled`` and ``--parallel-folds`` raise NotImplementedError."""
+    ``--unshuffled`` (its stateful fold, fold 0) and ``--parallel-folds``
+    (both folds at once) trains too."""
     out = subprocess.run(
         [sys.executable, "-c", _CONFIGS_WITHOUT, str(tmp_path)], cwd=ROOT,
         env={**os.environ, "PYTHONPATH": ROOT},
@@ -179,10 +181,70 @@ def test_configs_2_3_4_train_without_pandas_sklearn_or_yaml(tmp_path):
     assert report["config3"]["test_r2_fold_0"] == 1
     assert report["config4"]["test_auc_fold_0"] == 1
     assert report["predict_rows"] > 0
-    assert len(report["refused"]) == 2
-    assert "unshuffled" in report["refused"][0]
-    assert "parallel_folds" in report["refused"][1]
+    unshuffled, parallel = report["--unshuffled"], report["--parallel-folds"]
+    assert unshuffled[0] > 0 and unshuffled[1] == 0
+    assert parallel[0] > 0 and parallel[0] == parallel[1]
     assert (tmp_path / "models" / "config3.scaling.json").exists()
+
+
+_CONFIGS_5_7_WITHOUT = r"""
+import json, sys
+for blocked in ("pandas", "sklearn", "yaml", "jax", "deepards_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from deepards_tpu_torch.cli.train import main
+from deepards_tpu_torch.data.synthetic import generate_cohort
+from deepards_tpu_torch.explain.gradcam import MaxMinNormCam
+
+work = sys.argv[1]
+cohort = generate_cohort(work + "/cohort", n_patients=4,
+                         n_breaths_per_patient=80, seed=3)
+small = ["--data-path", work + "/cohort", "--cohort-file", cohort,
+         "--device", "cpu", "--results-dir", work + "/results",
+         "--n-sub-batches", "4", "--batch-size", "8", "--kfolds", "2"]
+report = {}
+ppnet = main(chip_smoke.CONFIG5_FLAGS + small + chip_smoke.CONFIG5_CUT
+             + ["--only-fold", "0", "--save-model", "c5.pt",
+                "--saved-models-dir", work + "/models"])
+report["config5"] = {
+    "pushes": len(ppnet.push_infos),
+    "steps": len(ppnet.results.get_meter("loss", 0).values),
+    "aucs": len(ppnet.results.get_meter("test_auc", 0).values)}
+parallel = main(chip_smoke.CONFIG_FLAGS["config7"] + small
+                + ["--epochs", "1", "--save-model", "c7.pt",
+                   "--saved-models-dir", work + "/models"])
+report["config7"] = [len(parallel.results.get_meter("test_auc", f).values)
+                     for f in (0, 1)]
+from deepards_tpu_torch.models import densenet1d, heads
+cam = MaxMinNormCam(heads.CNNLinearNetwork(densenet1d.densenet18(), 4))
+cams, _ = cam.generate_read_cams_batch(
+    np.random.default_rng(0).normal(size=(2, 4, 1, 224)), [0, 1])
+report["cams"] = list(cams.shape)
+print(json.dumps(report))
+"""
+
+
+def test_configs_5_and_7_train_without_pandas_sklearn_or_yaml(tmp_path):
+    """Config 5 (ProtoPNet, fold 0, chip_smoke.py's cut schedule: every
+    stage and two pushes) and config 7 (``--parallel-folds``, both folds,
+    one epoch) through ``cli.train``, and a GradCAM batch, from
+    chip_smoke.py's flags at S = 4, with pandas, scikit-learn, PyYAML, JAX
+    and deepards_tpu blocked."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CONFIGS_5_7_WITHOUT, str(tmp_path)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["config5"]["pushes"] == 2
+    assert report["config5"]["aucs"] == 3 and report["config5"]["steps"]
+    assert report["config7"] == [1, 1]
+    assert report["cams"] == [2, 4, 7]
+    assert (tmp_path / "models" / "c7-fold1.scaling.json").exists()
+    assert (tmp_path / "models" / "c5-fold0").exists()
 
 
 _HETERO_WITHOUT = r"""

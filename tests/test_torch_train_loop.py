@@ -324,7 +324,8 @@ def test_unported_options_raise(synthetic_cohort, tmp_path, option):
 
 
 @pytest.mark.parametrize("over", [
-    dict(parallel_folds=True), dict(network="protopnet"),
+    dict(network="cnn_linear_2d", parallel_folds=True),
+    dict(network="protopnet_2d"),
     dict(network="siamese_cnn_linear"), dict(network="retinanet_2d"),
     dict(network="cnn_to_nested_lstm"),
 ])
