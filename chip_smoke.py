@@ -44,6 +44,13 @@ own sequential step, beside and against five sequential steps, also over
 resnet18) and ``config5`` (ProtoPNet's three stages and the prototype
 push, and GradCAM over 128 sequences), each trained through the CLI, held
 against the CPU and graphed against eager, and timed.
+Then ``explain`` drives the explain CLIs over config 1's and config 5's
+fold-0 checkpoints on a seeded cohort: ``cli.patient_gradcam --ops
+dtw_clust`` on a patient of 60 windows (its cam-active spans scored
+pairwise through the DTW kernel, the matrix held to ``dtw_reference``
+exactly, the cams to the CPU, each stage timed), the CLI's six other ops,
+``find_similar_cam_regions`` and ``cli.protopnet_analysis`` (distances
+and probabilities held to the CPU, features to their own distances).
 Every phase prints one JSON line; any failure exits nonzero.  The last
 two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints
@@ -358,13 +365,15 @@ def sass_fp32_per_cell():
     return out
 
 
-def dtw_bound(la, lb, n, per_cell, sms, clock_hz):
-    """Least time for one dtw call: input read once and output written
-    once at the HBM rate, against the cells' FP32 instructions at the
-    SMs' issue rate (``per_cell`` from the SASS)."""
+def dtw_bound(la, lb, per_cell, sms, clock_hz):
+    """Least time for one dtw call: each pair's la + lb real samples and
+    both lengths read once and its distance written once at the HBM rate
+    (a padded sample is no work the function must do), against the la * lb
+    cells' FP32 instructions at the SMs' issue rate (``per_cell`` from the
+    SASS)."""
     bsz = la.numel()
     cells = float((la.double() * lb.double()).sum())
-    bytes_moved = 2 * bsz * n * 4 + 2 * bsz * 4 + bsz * 4
+    bytes_moved = 4 * float((la.double() + lb.double()).sum()) + 3 * bsz * 4
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = cells * per_cell / (sms * SM_FP32_LANES * clock_hz) * 1e3
     return {"cells": cells, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -457,7 +466,7 @@ def phase_kernel():
         # time (tens of microseconds) where the kernel is shorter than that
         kernel_ms = device_ms(lambda: dtw_cuda(a, b, la, lb))
         kernel = "warp{}".format(-(-n // 32)) if n <= 256 else "strip"
-        bound = dtw_bound(la, lb, n, per_cell[kernel]["fp32_per_cell"], sms,
+        bound = dtw_bound(la, lb, per_cell[kernel]["fp32_per_cell"], sms,
                           clock_hz)
         shapes.append({"shape": label, "B": bsz, "n": n,
                        "lengths": [int(la.min()), int(la.max())],
@@ -489,7 +498,8 @@ def phase_kernel():
          resident_warps_per_sm=resident,
          tolerance="exact vs dtw_reference; rtol 1e-4 vs f64 oracle")
     return {**shapes[-1], "max_abs_err": max_err,
-            "strip_fp32_per_cell": per_cell["strip"]["fp32_per_cell"]}
+            "fp32_per_cell": {k: v["fp32_per_cell"]
+                              for k, v in per_cell.items()}}
 
 
 def phase_serve(workdir, device="cuda"):
@@ -2417,25 +2427,15 @@ def push_seconds(workdir, device):
             "windows_per_s": MEASURE_WINDOWS / seconds}
 
 
-def gradcam_card_vs_cpu(device):
-    """``MaxMinNormCam`` over CAM_SEQUENCES full-width sequences of a
-    seeded cnn_linear/densenet18 on the device and on the CPU: the raw
-    cams within CAM_ATOL, but those of a window where a feature crosses
-    0 on one side only (the head's ReLU makes the cam jump there; counted,
-    at most 1% of the cams), the outputs within CAM_ATOL, the uint8 cams
-    (count of elements apart); cams/s of the whole call and of the device
-    pass.  Planted: the other class's cams."""
-    import torch
-
+def cams_card_vs_cpu(model, xs, targets, device):
+    """``MaxMinNormCam`` of ``model`` over sequences ``xs`` on the device
+    and on the CPU: the raw cams within CAM_ATOL, but those of a window
+    where a feature crosses 0 on one side only (the head's ReLU makes the
+    cam jump there; counted, at most 1% of the cams), the outputs within
+    CAM_ATOL, the uint8 cams (count of elements apart).  Planted: the
+    other class's cams.  Returns (fields, the device's cam generator)."""
     from deepards_tpu_torch.explain.gradcam import MaxMinNormCam
-    from deepards_tpu_torch.models import densenet1d, heads
 
-    rng = np.random.default_rng(SEED + 18)
-    xs = make_windows(rng, CAM_SEQUENCES)
-    xs = (xs - xs.mean()) / xs.std()
-    targets = np.ones(CAM_SEQUENCES, np.int64)
-    model = heads.CNNLinearNetwork(densenet1d.densenet18(), S)
-    model.reset_parameters(torch.Generator().manual_seed(SEED + 5))
     sides = {}
     for dev in (device, "cpu"):
         cam = MaxMinNormCam(copy.deepcopy(model).to(dev))
@@ -2450,7 +2450,7 @@ def gradcam_card_vs_cpu(device):
     flipped = (d_pos != c_pos).any(axis=(2, 3))  # (sequences, S)
     other, _ = d_cam.read_cams_batch(xs, 1 - targets)
     err = float(np.abs(d_raw - c_raw)[~flipped].max())
-    fields = {"sequences": CAM_SEQUENCES, "atol": CAM_ATOL,
+    fields = {"sequences": len(xs), "atol": CAM_ATOL,
               "max_abs_cam": err,
               "cams_with_a_relu_flip": int(flipped.sum()),
               "max_abs_cam_with_a_relu_flip": float(
@@ -2466,9 +2466,26 @@ def gradcam_card_vs_cpu(device):
         raise AssertionError("the cam check would pass the other class's "
                              "cams")
     if err > CAM_ATOL or fields["max_abs_output"] > CAM_ATOL or \
-            d_raw.shape != (CAM_SEQUENCES, S, 7) or \
-            flipped.mean() > 0.01:
+            d_raw.shape != xs.shape[:2] + (7,) or flipped.mean() > 0.01:
         raise AssertionError("gradcam card vs CPU: {}".format(fields))
+    return fields, d_cam
+
+
+def gradcam_card_vs_cpu(device):
+    """``cams_card_vs_cpu`` over CAM_SEQUENCES full-width sequences of a
+    seeded cnn_linear/densenet18; cams/s of the whole call and of the
+    device pass."""
+    import torch
+
+    from deepards_tpu_torch.models import densenet1d, heads
+
+    rng = np.random.default_rng(SEED + 18)
+    xs = make_windows(rng, CAM_SEQUENCES)
+    xs = (xs - xs.mean()) / xs.std()
+    targets = np.ones(CAM_SEQUENCES, np.int64)
+    model = heads.CNNLinearNetwork(densenet1d.densenet18(), S)
+    model.reset_parameters(torch.Generator().manual_seed(SEED + 5))
+    fields, d_cam = cams_card_vs_cpu(model, xs, targets, device)
     if device == "cuda":
         fields["call_ms"] = cuda_ms(
             lambda: d_cam.generate_read_cams_batch(xs, targets), warmup=1,
@@ -2532,13 +2549,15 @@ SIM_KEEP = 256  # pairs of the sweep's first chunk held to dtw_reference
 SUB_PATIENTS, SUB_N_RANDOM = 8, 4  # the sub-cohort held card vs CPU
 
 
-def cohort_dataset(workdir, data, patho, n_windows):
+def cohort_dataset(workdir, data, patho, n_windows, total_kfolds=None):
     """An ``ARDSRawDataset`` over windows ``data`` of len(patho) patients
-    ("1", "2", ...) with ``n_windows`` each, patient k of class patho[k]."""
+    ("1", "2", ...) with ``n_windows`` each (or one count a patient),
+    patient k of class patho[k], in ``total_kfolds`` folds if given."""
     from deepards_tpu_torch.data.dataset import ARDSRawDataset
     from deepards_tpu_torch.data.windowing import WindowCache
 
     n_patients = len(patho)
+    counts = np.broadcast_to(n_windows, (n_patients,))
     cohort = os.path.join(workdir, "cohort-{}.csv".format(n_patients))
     with open(cohort, "w") as f:
         f.write("Patient Unique Identifier,Pathophysiology\n")
@@ -2546,14 +2565,16 @@ def cohort_dataset(workdir, data, patho, n_windows):
                      for k, y in enumerate(patho))
     cache = WindowCache(
         data=data,
-        target=np.eye(2, dtype=np.float32)[np.repeat(patho, n_windows)],
-        hours=np.tile(np.arange(n_windows * data.shape[1], dtype=np.float32)
-                      .reshape(n_windows, -1) * 0.05, (n_patients, 1)),
-        patient_idx=np.repeat(np.arange(n_patients), n_windows).astype(
+        target=np.eye(2, dtype=np.float32)[np.repeat(patho, counts)],
+        hours=np.concatenate([
+            np.arange(c * data.shape[1], dtype=np.float32).reshape(c, -1)
+            * 0.05 for c in counts]),
+        patient_idx=np.repeat(np.arange(n_patients), counts).astype(
             np.int32),
         patients=[str(k + 1) for k in range(n_patients)])
     return ARDSRawDataset(workdir, 1, cohort, data.shape[1],
-                          "unpadded_centered_sequences", cache=cache)
+                          "unpadded_centered_sequences", cache=cache,
+                          total_kfolds=total_kfolds)
 
 
 def phase_dtw_similarity(workdir, device="cuda", per_cell=None,
@@ -2763,6 +2784,389 @@ def phase_hetero(workdir, device="cuda", nb=S, n_patients=16,
     return sum(s["launches"] for s in steps.values())
 
 
+# the explain phase: one patient of dtw_similarity's per-patient size (60
+# windows, 1,200 breaths) for dtw_clust; the others smaller
+EXPLAIN_WINDOWS, EXPLAIN_OTHER_WINDOWS, EXPLAIN_PATIENTS = 60, 8, 10
+EXPLAIN_KFOLDS = 5
+EXPLAIN_OPS = ("medians", "averages", "sample_seqs", "read_cam",
+               "cam_by_hour", "rand_sample")
+SIMILAR_WINDOWS = 1  # find_similar_cam_regions' windows (the JAX default 6)
+# PPNet's minimum distances, card vs CPU: 1e-5 of max(1, d, |p|^2), f32
+# sums of 128 squares near 40 (as the push's); the features (similarities)
+# within what that moves them by and 1e-5 of max(1, |x|); probabilities
+# within 1e-5
+PROTO_ATOL = 1e-5
+
+
+def explain_cohort(workdir, nb, n_windows, other_windows, n_patients,
+                   kfolds):
+    """The explain phase's seeded cohort saved as an ``.npz``: patient "1"
+    (class 0) of ``n_windows`` windows, the others of ``other_windows``,
+    classes alternating.  Returns (path, the fold whose test split holds
+    patient "1")."""
+    from deepards_tpu_torch.data.dataset import ARDSRawDataset
+
+    counts = [n_windows] + [other_windows] * (n_patients - 1)
+    rng = np.random.default_rng(SEED + 9)
+    path = cohort_dataset(workdir, make_windows(rng, sum(counts), nb),
+                          np.arange(n_patients) % 2, counts,
+                          total_kfolds=kfolds).save(
+                              os.path.join(workdir, "explain.npz"))
+    ds = ARDSRawDataset.from_pickle(path)
+    ds.set_kfold_patient_splits()
+    fold = next(k for k in range(kfolds)
+                if "1" in ds.kfold_patient_splits[k]["test"])
+    return path, fold
+
+
+def seeded_checkpoint(path, model, seed):
+    """``model`` reset from a seeded generator and saved through
+    ``train/checkpoint.py``."""
+    import torch
+
+    from deepards_tpu_torch.train import checkpoint as ckpt
+
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return ckpt.save(path, model.state_dict())
+
+
+def dtw_matrix_vs_reference(spans, D, device):
+    """The op's matrix against ``dtw_reference`` on the device over the same
+    spans, exactly; planted: one span's length off by one."""
+    import torch
+
+    from deepards_tpu_torch.ops.dtw import dtw_reference
+
+    lens = np.array([len(s) for s in spans], np.int32)
+    padded = np.zeros((len(spans), lens.max()), np.float32)
+    for i, s in enumerate(spans):
+        padded[i, :lens[i]] = s
+    spans_d = torch.from_numpy(padded).to(device)
+
+    def reference(lengths, ii, jj, chunk=65536):
+        lens_d = torch.from_numpy(lengths).to(device)
+        out = []
+        for lo in range(0, len(ii), chunk):
+            a, b = (torch.from_numpy(x[lo:lo + chunk]).to(device)
+                    for x in (ii, jj))
+            out.append(dtw_reference(spans_d[a], spans_d[b], lens_d[a],
+                                     lens_d[b]).cpu().numpy())
+        return np.concatenate(out).astype(np.float64)
+
+    ii, jj = np.triu_indices(len(spans), k=1)
+    want = reference(lens, ii, jj)
+    err = float(np.abs(D[ii, jj] - want).max())
+    planted = lens.copy()
+    planted[0] -= 1
+    touched = (ii == 0) | (jj == 0)
+    planted_err = float(np.abs(
+        D[ii[touched], jj[touched]]
+        - reference(planted, ii[touched], jj[touched])).max())
+    if err != 0.0 or (D != D.T).any() or np.diag(D).any():
+        raise AssertionError("dtw_clust matrix vs dtw_reference: max abs "
+                             "{}".format(err))
+    if planted_err == 0.0:
+        raise AssertionError("the matrix check would pass a span length "
+                             "off by one")
+    return {"max_abs_err": err, "planted_length_off_by_one": planted_err,
+            "pairs": len(ii)}
+
+
+def dtw_clust_kernel_ms(spans, device, chunk=4096):
+    """The DTW kernel's own device time (torch.profiler) over ``dtw_clust``'s
+    chunks of its spans, gathered on the device as the op gathers them:
+    (ms in all, ms a launch, launches)."""
+    import torch
+
+    from deepards_tpu_torch.ops.dtw import dtw_cuda
+    from deepards_tpu_torch.ops.dtw_timing import device_ms
+
+    lens = np.array([len(s) for s in spans], np.int32)
+    padded = np.zeros((len(spans), lens.max()), np.float32)
+    for i, s in enumerate(spans):
+        padded[i, :lens[i]] = s
+    ii, jj = np.triu_indices(len(spans), k=1)
+    spans_d, lens_d, ii_d, jj_d = (torch.from_numpy(x).to(device)
+                                   for x in (padded, lens, ii, jj))
+
+    def loop():
+        for lo in range(0, len(ii), chunk):
+            a, b = ii_d[lo:lo + chunk], jj_d[lo:lo + chunk]
+            dtw_cuda(spans_d[a], spans_d[b], lens_d[a], lens_d[b])
+
+    launches = -(-len(ii) // chunk)
+    per_launch = device_ms(loop, reps=1)
+    return per_launch * launches, per_launch, launches
+
+
+def phase_explain(workdir, device="cuda", cam_checkpoint=None,
+                  ppnet_checkpoint=None, per_cell=None, nb=S,
+                  n_windows=EXPLAIN_WINDOWS,
+                  other_windows=EXPLAIN_OTHER_WINDOWS,
+                  n_patients=EXPLAIN_PATIENTS, kfolds=EXPLAIN_KFOLDS):
+    """The explain CLIs at full width on a seeded cohort: ``dtw_clust``
+    through ``cli.patient_gradcam --only-patient 1`` (the cams, the
+    cam-active spans, their DTW matrix through the kernel, KMedoids) timed
+    by stage and by the profiler, its cams and outputs equal to those of
+    the same checkpoint's model held against the CPU, its matrix against
+    ``dtw_reference`` exactly and its distortions against KMedoids on that
+    matrix; the other six ops through the CLI; ``find_similar_cam_regions``
+    with the cams on the device held against the CPU's;
+    ``cli.protopnet_analysis`` on a ProtoPNet checkpoint, its distances
+    and probabilities held against the CPU in the same batches and its
+    features against the similarity of its own distances.
+    ``cam_checkpoint`` (cnn_linear/densenet18) and ``ppnet_checkpoint``
+    (config 5's PPNet) default to seeded ones.  Returns the kernel
+    launches of ``dtw_clust``."""
+    import torch
+
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+    from deepards_tpu_torch.cli import patient_gradcam as gradcam_cli
+    from deepards_tpu_torch.cli import protopnet_analysis as ppnet_cli
+    from deepards_tpu_torch.data.dataset import ARDSRawDataset
+    from deepards_tpu_torch.data.pipeline import gather_pipeline
+    from deepards_tpu_torch.dtw.kmedoids import KMedoids
+    from deepards_tpu_torch.explain.dtw_gradcam import (
+        find_similar_cam_regions,
+    )
+    from deepards_tpu_torch.explain.patient_gradcam import (
+        PATHO_NAME,
+        StageTimer,
+    )
+    from deepards_tpu_torch.explain.prototypes import ProtoPNetAnalysis
+    from deepards_tpu_torch.models import densenet1d, heads, protopnet1d
+    from deepards_tpu_torch.train import checkpoint as ckpt
+
+    def path(*parts):
+        return os.path.join(workdir, *parts)
+
+    t_phase = time.perf_counter()
+    os.makedirs(path("explain"), exist_ok=True)
+    data_path, fold = explain_cohort(path("explain"), nb, n_windows,
+                                     other_windows, n_patients, kfolds)
+    cam_model = heads.CNNLinearNetwork(densenet1d.densenet18(), nb)
+    if cam_checkpoint is None:
+        cam_checkpoint = seeded_checkpoint(path("explain", "cnn_linear.pt"),
+                                           cam_model, SEED + 10)
+    cam_model.load_state_dict(ckpt.restore(cam_checkpoint)["params"])
+    ppnet = protopnet1d.construct_ppnet(densenet1d.densenet18(),
+                                        sub_batch_size=nb, n_prototypes=10)
+    if ppnet_checkpoint is None:
+        ppnet_checkpoint = seeded_checkpoint(path("explain", "ppnet.pt"),
+                                             ppnet, SEED + 11)
+    ppnet.load_state_dict(ckpt.restore(ppnet_checkpoint)["params"])
+    cli_args = [cam_checkpoint, "-pdp", data_path, "--fold", str(fold),
+                "--device", device]
+    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
+              "cohort": {"patients": n_patients, "kfolds": kfolds,
+                         "windows_of_patient_1": n_windows,
+                         "windows_of_the_others": other_windows,
+                         "window": [nb, C, L], "fold": fold},
+              "reduced": {"find_similar_cam_regions_windows": "6 -> {}"
+                          .format(SIMILAR_WINDOWS)}}
+
+    # dtw_clust on patient "1": the path of the kernel
+    timer = StageTimer()
+    dtw_ops.launches = 0
+    t0 = time.perf_counter()
+    results = gradcam_cli.main(cli_args + [
+        "--ops", "dtw_clust", "--only-patient", "1", "--results-base-dir",
+        path("explain", "dtw_clust")], timer=timer)
+    op_seconds = time.perf_counter() - t0
+    launches = dtw_ops.launches
+    (key, res), = results.items()
+    spans, D = res["spans"], res["distance_matrix"]
+    lens = np.array([len(s) for s in spans])
+    n_spans = len(spans)
+    pairs = n_spans * (n_spans - 1) // 2
+    with np.load(path("explain", "dtw_clust", "dtw_clustering",
+                      PATHO_NAME[key[1]], "1", "elbow.npz")) as z:
+        elbow = {k: z[k] for k in z.files}
+    distortions = [float(np.min(D[:, KMedoids(k, metric="precomputed")
+                                  .fit(D).medoid_indices_], axis=1).sum()
+                         / n_spans) for k in elbow["clusters"]]
+    if distortions != elbow["distortions"].tolist() or \
+            int(elbow["n_sequences"]) != n_spans:
+        raise AssertionError("elbow.npz against KMedoids on the op's "
+                             "matrix: {} vs {}".format(
+                                 elbow["distortions"], distortions))
+    test = ARDSRawDataset.make_test_dataset_if_kfold(
+        ARDSRawDataset.from_pickle(data_path))
+    test.set_kfold_indexes_for_fold(fold)
+    gt = test.get_ground_truth()
+    xs = gather_pipeline(test)(test.gather(gt.index[gt.patient == "1"])[
+        "data"])
+    targets = np.full(len(xs), key[1])
+    cams, d_cam = cams_card_vs_cpu(cam_model, xs, targets, device)
+    # the op's cams (its CLI's model, load and transforms) against those of
+    # the model checked above, on one device over the same batch: equal
+    normed, outs = d_cam.generate_read_cams_batch(xs, targets)
+    other, _ = d_cam.generate_read_cams_batch(xs, 1 - targets)
+    cams["op_vs_checked"] = {
+        "uint8_elements_apart": int((res["cams"] != normed).sum()),
+        "max_abs_output": float(np.abs(res["outputs"] - outs).max()),
+        "planted_other_class_elements_apart": int(
+            (res["cams"] != other).sum())}
+    if res["cams"].shape != normed.shape or \
+            cams["op_vs_checked"]["uint8_elements_apart"] or \
+            cams["op_vs_checked"]["max_abs_output"]:
+        raise AssertionError("dtw_clust's cams vs the checked model's: {}"
+                             .format(cams["op_vs_checked"]))
+    if not cams["op_vs_checked"]["planted_other_class_elements_apart"]:
+        raise AssertionError("the op's cam check would pass the other "
+                             "class's cams")
+    dtw = {"spans": n_spans, "span_lengths": [int(lens.min()),
+                                              int(lens.max())],
+           "pairs": pairs, "chunks": -(-pairs // 4096), "launches": launches,
+           "stage_seconds": timer.seconds, "op_seconds": op_seconds,
+           "cams_card_vs_cpu": cams,
+           "matrix_vs_reference": dtw_matrix_vs_reference(spans, D, device),
+           "distortions": distortions}
+    if device == "cuda":
+        device_ms = timer.device_ms
+        ii, jj = np.triu_indices(n_spans, k=1)
+        width = int(lens.max())
+        bound = dtw_bound(
+            torch.from_numpy(lens[ii]), torch.from_numpy(lens[jj]),
+            per_cell["warp{}".format(-(-width // 32))
+                     if width <= 256 else "strip"],
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            sm_clock_hz())
+        # the events around each call hold its host time where the kernel
+        # is shorter: the share is of the kernel's own time
+        kernel_ms, kernel_ms_per_launch, _ = dtw_clust_kernel_ms(spans,
+                                                                 device)
+        pass_ms = cuda_ms(lambda: d_cam._fmaps_and_grads(xs, targets),
+                          warmup=1, reps=5)
+        dtw.update(
+            breaths=xs.shape[0] * xs.shape[1],
+            cams_device_pass_ms=pass_ms,
+            cams_per_s=xs.shape[0] * xs.shape[1] / timer.seconds["cams"],
+            device_pass_cams_per_s=xs.shape[0] * xs.shape[1] / pass_ms * 1e3,
+            gather_ms=sum(device_ms["gather"]),
+            kernel_call_ms=sum(device_ms["kernel"]),
+            kernel_call_ms_per_chunk=device_ms["kernel"],
+            kernel_ms=kernel_ms, kernel_ms_per_launch=kernel_ms_per_launch,
+            width=width, share_of_bound=bound["bound_ms"] / kernel_ms,
+            **bound)
+        if launches == 0:
+            raise AssertionError("dtw_clust launched no kernel")
+    fields["dtw_clust"] = dtw
+    print("explain dtw_clust: {} spans, {} pairs, {} launches, {} s".format(
+        n_spans, pairs, launches, op_seconds), flush=True)
+
+    # the other ops of the CLI, each once
+    fields["ops"] = {}
+    for op in EXPLAIN_OPS:
+        # a pane draws windows of both classes: the fold's test patients
+        scope = [] if op == "rand_sample" else ["--only-patient", "1"]
+        extra = ["--seqs-per-hour", "4"] if op == "cam_by_hour" else []
+        out_dir = path("explain", op)
+        t0 = time.perf_counter()
+        gradcam_cli.main(cli_args + ["--ops", op, "--results-base-dir",
+                                     out_dir] + scope + extra)
+        written = sum(len(f) for _, _, f in os.walk(out_dir))
+        fields["ops"][op] = {"seconds": time.perf_counter() - t0,
+                             "files": written}
+        if not written:
+            raise AssertionError("{} wrote no file".format(op))
+
+    # find_similar_cam_regions: the cams on the device against the CPU's
+    similar = {}
+    for dev in (device, "cpu"):
+        model = copy.deepcopy(cam_model).to(dev)
+        seen = []
+        cam = type(d_cam)(model)
+        generate = cam.generate_read_cams_batch
+        cam.generate_read_cams_batch = lambda x, t: seen.append(
+            generate(x, t)) or seen[-1]
+        t0 = time.perf_counter()
+        found, cam_dists = find_similar_cam_regions(
+            cam, test, "1", key[1], n_windows=SIMILAR_WINDOWS,
+            rng=np.random.default_rng(SEED))
+        similar[dev] = (found, cam_dists, seen[0][0],
+                        time.perf_counter() - t0)
+    apart = int((similar[device][2] != similar["cpu"][2]).sum())
+    same = apart == 0 and len(similar[device][0]) == len(similar["cpu"][0]) \
+        and np.array_equal(similar[device][1], similar["cpu"][1])
+    fields["find_similar_cam_regions"] = {
+        "windows": SIMILAR_WINDOWS, "runs": len(similar[device][1]),
+        "runs_kept": len(similar[device][0]),
+        "uint8_cam_elements_apart": apart, "same_runs_as_cpu": same,
+        "seconds": similar[device][3]}
+    if apart == 0 and not same:
+        raise AssertionError("find_similar_cam_regions: equal cams, other "
+                             "runs")
+
+    # cli.protopnet_analysis on the ProtoPNet checkpoint
+    t0 = time.perf_counter()
+    analysis, pane = ppnet_cli.main([
+        ppnet_checkpoint, "--kfold-from-pickle", data_path, "--kfold-idx",
+        str(fold), "-o", path("explain", "protopnet"), "--device", device])
+    ppnet_seconds = time.perf_counter() - t0
+    cpu_model = copy.deepcopy(ppnet).to("cpu")
+    cpu = ProtoPNetAnalysis(cpu_model, analysis.train_ds, analysis.test_ds)
+    err, planted = {}, {"distances": 0.0, "features": 0.0}
+
+    def similarity(d):
+        """The head's inputs from distances, as the analysis forms them."""
+        sims = ppnet.distance_to_similarity(
+            torch.from_numpy(np.ascontiguousarray(d))).numpy()
+        if ppnet.average_linear:
+            sims = sims.reshape(len(d), -1, ppnet.num_prototypes).mean(1)
+        return sims
+
+    # a distance |x|^2 + |p|^2 - 2<x, p> rounds at the scale of its terms,
+    # ~|p|^2 (near 40) also where the push left it near 0
+    squares = np.tile((ppnet.prototype_vectors.detach() ** 2).sum(
+        dim=(1, 2)).numpy(), nb)  # (S*P,), the distances' layout
+    for split in ("train", "test"):
+        d_card, d_cpu = (getattr(a, split + "_distances")
+                         for a in (analysis, cpu))
+        dist_limit = PROTO_ATOL * np.maximum(np.maximum(1.0, d_cpu),
+                                             squares)
+        # the card's features against the similarity of its own distances
+        # (near d = 0 a distance's rounding moves it by up to 1/eps times)
+        feats = getattr(analysis, split + "_features")
+        own, reversed_own = similarity(d_card), similarity(d_card[::-1])
+        feat_limit = PROTO_ATOL * np.maximum(1.0, np.abs(own))
+        err[split] = {
+            "distances": float((np.abs(d_card - d_cpu) / dist_limit).max()),
+            "features_vs_own_distances": float(
+                (np.abs(feats - own) / feat_limit).max()),
+            "features_vs_cpu_of_max_1_x": float(
+                (np.abs(feats - getattr(cpu, split + "_features"))
+                 / np.maximum(1.0, np.abs(own))).max()),
+            "least_distance": float(d_cpu.min()),
+            "preds": float(np.abs(getattr(analysis, split + "_preds")
+                                  - getattr(cpu, split + "_preds")).max()
+                           / PROTO_ATOL)}
+        planted["distances"] = max(planted["distances"], float(
+            (np.abs(d_card[::-1] - d_cpu) / dist_limit).max()))
+        planted["features"] = max(planted["features"], float(
+            (np.abs(feats - reversed_own) / feat_limit).max()))
+    with open(pane + ".txt") as f:
+        record = f.read().splitlines()
+    fields["protopnet_analysis"] = {
+        "checkpoint": os.path.basename(ppnet_checkpoint),
+        "windows": [len(analysis.train_gt.index),
+                    len(analysis.test_gt.index)],
+        "features": list(analysis.test_features.shape[1:]),
+        "prototype_squared_norms": [float(squares.min()),
+                                    float(squares.max())],
+        "over_limit": err, "atol_of_max_1_x": PROTO_ATOL,
+        "planted_rows_reversed_over_limit": planted,
+        "pane_records": len(record) - 1, "seconds": ppnet_seconds}
+    if max(v for e in err.values() for k, v in e.items()
+           if k in ("distances", "features_vs_own_distances", "preds")) > 1 \
+            or min(planted.values()) <= 1 or len(record) != 17:
+        raise AssertionError("protopnet_analysis card vs CPU: {}".format(
+            fields["protopnet_analysis"]))
+    fields["phase_seconds"] = time.perf_counter() - t_phase
+    emit("explain", **fields)
+    return launches
+
+
 def main():
     import torch
 
@@ -2806,6 +3210,18 @@ def main():
             dtw_ops.launches = 0
             phase(work)
             by_path[name] = dtw_ops.launches
+        # the explain CLIs over config 1's and config 5's fold-0
+        # checkpoints: the count from 0 just before dtw_clust (inside the
+        # phase), read just after
+        by_path["explain"] = phase_explain(
+            work, cam_checkpoint=os.path.join(work, "config1_models",
+                                              "config1-fold0"),
+            ppnet_checkpoint=os.path.join(work, "config5_models",
+                                          "config5-fold0"),
+            per_cell=dtw_stats["fp32_per_cell"])
+        if not by_path["explain"]:
+            raise AssertionError("the explain path never launched the dtw "
+                                 "kernel")
     training = {name: by_path[name] for name in CONFIG_FLAGS}
     emit("train_path_kernel_launches", dtw=training)
     if any(training.values()):
@@ -2817,7 +3233,7 @@ def main():
     # chain's just before it, each read just after
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         by_path["dtw_similarity"] = phase_dtw_similarity(
-            work, per_cell=dtw_stats["strip_fp32_per_cell"])
+            work, per_cell=dtw_stats["fp32_per_cell"]["strip"])
         dtw_ops.launches = 0
         by_path["hetero"] = phase_hetero(work)
         if dtw_ops.launches != by_path["hetero"]:

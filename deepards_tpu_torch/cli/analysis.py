@@ -8,9 +8,10 @@ Counterpart of ``deepards_tpu/cli/analysis.py`` on numpy (no pandas):
   least-squares fit against the ARDS vote fraction (reference:
   deepards/regression_dtw.py:10-60);
 - ``analyze-predictions``: a per-patient drill-down of a run's results
-  JSON (reference: deepards/analyze_predictions.py).
-Tables are lists of row dicts under the JAX package's column names.  The
-JAX package's ``signal_distributions`` needs ``sosfilt``, not ported yet.
+  JSON (reference: deepards/analyze_predictions.py);
+- ``signal_distributions``: statistics of the raw and Butterworth-filtered
+  window values (reference: distributions.py).
+Tables are lists of row dicts under the JAX package's column names.
 Run: ``python -m deepards_tpu_torch.cli.analysis {lstm-dtw,
 analyze-predictions} ...``.
 """
@@ -19,7 +20,10 @@ import math
 import warnings
 
 import numpy as np
+import torch
 
+from deepards_tpu_torch.data.pipeline import design_butter_sos, sosfilt
+from deepards_tpu_torch.device import resolve_device
 from deepards_tpu_torch.dtw.lib import analyze_patient
 
 
@@ -42,7 +46,7 @@ def lstm_dtw_analysis(dataset, cache_dir="dtw_cache", device=None):
     (reference: lstm_dtw.py:21-152)."""
     gt = dataset.get_ground_truth()
     per_pt = {}
-    for pt in dict.fromkeys(gt.patient.tolist()):
+    for pt in gt.patients():
         frame = analyze_patient(pt, dataset, cache_dir, None, device=device)
         per_pt[pt] = _nanmean(frame.dtw)
     return {"per_patient_mean_dtw": per_pt,
@@ -112,6 +116,31 @@ def analyze_predictions(patient_results_path):
     order = list(finite[np.argsort(means[finite], kind="quicksort")])
     order += list(np.flatnonzero(np.isnan(means)))
     return [out[i] for i in order]
+
+
+def signal_distributions(dataset, butter_configs=((None, None), (0, 10.0)),
+                         device=None):
+    """Mean, std and 1st/99th percentiles of the cache's values, raw and
+    through each (low, high) Butterworth filter, the filter on ``device``
+    (default: the card) (reference: distributions.py)."""
+    data = dataset.cache.data
+    stats = {}
+    for low, high in butter_configs:
+        sos = design_butter_sos(low, high)
+        if sos is None:
+            vals = data
+            name = "raw"
+        else:
+            x = torch.as_tensor(data, device=resolve_device(device))
+            vals = sosfilt(sos, x).cpu().numpy()
+            name = "butter_{}_{}".format(low, high)
+        stats[name] = {
+            "mean": float(vals.mean()),
+            "std": float(vals.std()),
+            "p01": float(np.percentile(vals, 1)),
+            "p99": float(np.percentile(vals, 99)),
+        }
+    return stats
 
 
 def main(argv=None):

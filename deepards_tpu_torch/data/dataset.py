@@ -46,6 +46,16 @@ class GroundTruth(NamedTuple):
     y: np.ndarray        # class (argmax of the one-hot target)
     hour: np.ndarray     # hour into the study of the first sub-sequence
 
+    def select(self, mask):
+        """The rows where ``mask`` holds, in their order (a frame's
+        boolean indexing)."""
+        return GroundTruth(*(field[mask] for field in self))
+
+    def patients(self):
+        """Distinct patients in order of first appearance (a frame's
+        ``patient.unique()``)."""
+        return list(dict.fromkeys(self.patient.tolist()))
+
 
 def _holdout_subdir(holdout_set_type, train, final_validation_set, kfold):
     """Data subdirectory selection (reference: deepards/dataset.py:450-471)."""

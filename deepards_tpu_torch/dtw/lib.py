@@ -266,7 +266,7 @@ def build_patient_score_map(dataset, cache_dir=None, device=None):
     gt = dataset.get_ground_truth()
     s = dataset.cache.data.shape[1]
     score_map = {}
-    for pt in dict.fromkeys(gt.patient.tolist()):
+    for pt in gt.patients():
         idxs = gt.index[gt.patient == pt]
         flat = [b for i in idxs
                 for b in dataset.cache.data[int(i)].reshape(

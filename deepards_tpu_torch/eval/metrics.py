@@ -202,7 +202,7 @@ class DeepARDSResults:
         """
         pred_index = np.asarray(pred_index)
         preds = np.asarray(preds)
-        patients = _unique(truth.patient.tolist())
+        patients = truth.patients()
         for pt in patients:
             rows = truth.patient == pt
             patho_n = int(truth.y[rows][0])

@@ -6,7 +6,8 @@ Split files (``config/splitfile.py`` against PyYAML), ``cli.sim_dissim``
 ``main(argv)`` on one saved ``.npz`` dataset that both packages read,
 ``cli.perform_data_splitting`` on two copies of one synthetic cohort, and
 the analysis functions.  File names and symlink trees are equal, split
-files ``yaml.safe_load``-equal, stats equal, DTW means within rtol 1e-6.
+files ``yaml.safe_load``-equal, stats equal, DTW means within rtol 1e-6,
+the signal statistics within 1e-5 of their scale.
 """
 import csv
 import json
@@ -15,6 +16,7 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
+import scipy.signal
 import torch
 import yaml
 
@@ -26,6 +28,7 @@ from deepards_tpu.data.synthetic import generate_cohort
 from deepards_tpu.eval.metrics import DeepARDSResults as JaxResults
 from deepards_tpu_torch.cli import analysis, perform_data_splitting, sim_dissim
 from deepards_tpu_torch.config import splitfile
+from deepards_tpu_torch.data import pipeline
 from deepards_tpu_torch.data.dataset import ARDSRawDataset
 from deepards_tpu_torch.data.windowing import WindowCache
 from deepards_tpu_torch.dtw import lib
@@ -221,6 +224,33 @@ def test_regression_dtw_features_matches_jax(saved, tmp_path):
             [w[k] for k in ("mean_dtw", "std_dtw", "pred_frac")], **CLOSE)
     for k in ("intercept", "slope", "r2"):
         np.testing.assert_allclose(fit[k], wfit[k], rtol=1e-5)
+
+
+@pytest.mark.parametrize("configs", [((None, None), (0, 10.0)),
+                                     ((0.5, None), (1.0, 8.0), (2.0, 25))])
+def test_signal_distributions_matches_jax(saved, configs):
+    """Raw and low-, high- and band-passed statistics within 1e-5 of the
+    JAX package's, relative to the larger of the value and the filtered
+    values' std: a band-passed mean lies near 0, where the JAX package's
+    float32 scan is 7e-7 off scipy's float64 filter and the port (one
+    product with the impulse-response matrix) 4e-8.  The port's also
+    within 1e-6 of scipy's, relative to the same scale."""
+    got = analysis.signal_distributions(saved["port"], configs, device="cpu")
+    want = janalysis.signal_distributions(saved["jax"], configs)
+    data = saved["port"].cache.data.astype(np.float64)
+    assert list(got) == list(want) and len(got) == len(configs)
+    for (low, high), (name, stats) in zip(configs, want.items()):
+        sos = pipeline.design_butter_sos(low, high)
+        vals = data if sos is None else scipy.signal.sosfilt(
+            sos.astype(np.float64), data, axis=-1)
+        exact = {"mean": vals.mean(), "std": vals.std(),
+                 "p01": np.percentile(vals, 1),
+                 "p99": np.percentile(vals, 99)}
+        assert list(got[name]) == list(stats) == list(exact)
+        for k, v in stats.items():
+            scale = max(abs(v), stats["std"])
+            assert abs(got[name][k] - v) <= 1e-5 * scale
+            assert abs(got[name][k] - exact[k]) <= 1e-6 * scale
 
 
 def _link_tree(data_path):

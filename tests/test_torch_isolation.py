@@ -65,12 +65,20 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.train.parallel_folds",
             "deepards_tpu_torch.train.protopnet_trainer",
             "deepards_tpu_torch.models.protopnet1d",
-            "deepards_tpu_torch.explain.gradcam"} <= set(report["modules"])
+            "deepards_tpu_torch.explain.gradcam",
+            "deepards_tpu_torch.explain.patient_gradcam",
+            "deepards_tpu_torch.explain.dtw_gradcam",
+            "deepards_tpu_torch.explain.prototypes",
+            "deepards_tpu_torch.explain.cam_analytics",
+            "deepards_tpu_torch.explain.explainer_comparison",
+            "deepards_tpu_torch.cli.patient_gradcam",
+            "deepards_tpu_torch.cli.protopnet_analysis"} <= set(
+                report["modules"])
     forbidden = [
         name for name in report["loaded"]
         if name == "deepards_tpu" or name.startswith("deepards_tpu.")
         or name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                  "pandas", "yaml", "sklearn")
+                                  "pandas", "yaml", "sklearn", "matplotlib")
     ]
     assert forbidden == []
 
@@ -282,6 +290,62 @@ def test_hetero_chain_needs_no_pandas_sklearn_or_yaml(tmp_path):
             ).exists()
     assert os.listdir(tmp_path / "hetero_cohort" / "experiment1" /
                       "train_sim_test_sim_dissim_split_1train" / "raw")
+
+
+_EXPLAIN_WITHOUT = r"""
+import sys
+for blocked in ("pandas", "sklearn", "yaml", "jax", "deepards_tpu",
+                "matplotlib"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+launches = chip_smoke.phase_explain(sys.argv[1], device="cpu", nb=4,
+                                    n_windows=6, other_windows=2,
+                                    n_patients=4, kfolds=2)
+assert launches == 0  # the CPU runs the kernel's plain version
+"""
+
+
+def test_explain_clis_need_no_pandas_sklearn_yaml_or_matplotlib(tmp_path):
+    """chip_smoke.py's explain phase on the CPU at a small size (S = 4, a
+    patient of 6 windows): ``cli.patient_gradcam`` (``dtw_clust`` and the
+    other six ops) and ``cli.protopnet_analysis`` on seeded checkpoints,
+    with pandas, scikit-learn, PyYAML, matplotlib, JAX and deepards_tpu
+    blocked."""
+    import chip_smoke
+
+    out = subprocess.run(
+        [sys.executable, "-c", _EXPLAIN_WITHOUT, str(tmp_path)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    phase = [json.loads(line) for line in out.stdout.splitlines()
+             if line.startswith('{"phase": "explain"')]
+    assert len(phase) == 1
+    assert phase[0]["dtw_clust"]["spans"] > 2
+    assert set(phase[0]["ops"]) == set(chip_smoke.EXPLAIN_OPS)
+    assert phase[0]["protopnet_analysis"]["pane_records"] == 16
+    assert (tmp_path / "explain" / "dtw_clust" / "dtw_clustering" /
+            "non_ards" / "1" / "elbow.npz").exists()
+
+
+def test_explain_clis_raise_without_cuda(tmp_path):
+    """Both explain CLIs refuse the default device with no card; with
+    ``--device cpu`` they run (the test above)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from deepards_tpu_torch.cli import patient_gradcam, protopnet_analysis
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        patient_gradcam.main([str(tmp_path / "m.pt"), "-pdp",
+                              str(tmp_path / "d.npz"), "--fold", "0",
+                              "--ops", "dtw_clust"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        protopnet_analysis.main([str(tmp_path / "m.pt"),
+                                 "--kfold-from-pickle",
+                                 str(tmp_path / "d.npz"), "--kfold-idx",
+                                 "0"])
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
