@@ -51,7 +51,20 @@ pairwise through the DTW kernel, the matrix held to ``dtw_reference``
 exactly, the cams to the CPU, each stage timed), the CLI's six other ops,
 ``find_similar_cam_regions`` and ``cli.protopnet_analysis`` (distances
 and probabilities held to the CPU, features to their own distances).
-Every phase prints one JSON line; any failure exits nonzero.  The last
+Then ``sequence`` takes each of the sequence networks (``SEQUENCE_FLAGS``:
+lstm_only, lstm_only_with_packing, double_lstm, cnn_transformer, the
+heads cnn_double_linear, cnn_single_breath_linear, cnn_linear_to_mean and
+cnn_linear_compr_to_rf, and the nested networks through the nested
+trainer) through the CLI (5 folds, 1 epoch), holds 3 full-width steps to
+the CPU in float32 and float64 (the median networks take the CPU's sort
+picks on the card, and its own sorts are held apart), graphed steps to
+eager ones, a
+served and a predicted checkpoint to the trainer, a nested patient's
+padded logits to its own bucket's, times the bf16 graphed step, and runs
+one real-size nested step (a 1,440-window patient in bucket 2,048); it
+prints one line a network.  Every other phase prints one JSON line, and
+``phase_seconds`` each phase's seconds; any failure exits nonzero.  The
+last
 two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints
 no result.
@@ -119,6 +132,35 @@ CONFIG5_FLAGS = [
     "--push-every-n", "6", "--n-push-iters", "5", "--clust-lambda", "0.8",
     "--sep-lambda", "0.2", "-np", "10", "-ic", "-0.5",
 ]
+# the sequence networks (the ``sequence`` phase): lstm_only and
+# lstm_only_with_packing as their experiment files
+# (deepards_tpu/config/experiment_files/generated/
+# lstm_only_experiment_benchmark.yml, lstm_only_with_packing.yml; the
+# latter spells epochs "pochs", a key nothing reads, so it trains the
+# default 10), the others as config 1 with the network changed
+LSTM_ONLY_FLAGS = [
+    "--batch-size", "16", "--clip-grad", "--clip-val", "0.01",
+    "--dataset-type", "unpadded_centered_sequences", "--epochs", "10",
+    "--kfolds", "5", "--n-sub-batches", "20", "--network", "lstm_only",
+    "--oversample-minority",
+]
+LSTM_PACKING_FLAGS = [
+    "--batch-size", "16", "--clip-grad", "--clip-val", "0.01",
+    "--dataset-type", "padded_breath_by_breath", "--kfolds", "5",
+    "--n-sub-batches", "20", "--network", "lstm_only_with_packing",
+    "--oversample-minority",
+]
+LSTM_ONLY = ("lstm_only", "lstm_only_with_packing", "double_lstm")
+NESTED_NETWORKS = ("cnn_to_nested_rnn", "cnn_to_nested_lstm",
+                   "cnn_to_nested_transformer")
+SEQUENCE_FLAGS = {
+    "lstm_only": LSTM_ONLY_FLAGS,
+    "lstm_only_with_packing": LSTM_PACKING_FLAGS,
+    **{name: CONFIG1_FLAGS + ["--network", name]
+       for name in ("double_lstm", "cnn_transformer", "cnn_double_linear",
+                    "cnn_single_breath_linear", "cnn_linear_to_mean",
+                    "cnn_linear_compr_to_rf") + NESTED_NETWORKS},
+}
 # config 5's schedule cut to pass through every stage and two pushes
 CONFIG5_CUT = ["--epochs", "3", "--n-warm-epochs", "1", "-pse", "2",
                "--push-every-n", "1", "--n-push-iters", "1"]
@@ -128,7 +170,7 @@ CONFIG_FLAGS = {"config1": CONFIG1_FLAGS, "config2": CONFIG2_FLAGS,
                 # (the JAX benchmark's config 7), config 5
                 "config4_unshuffled": CONFIG4_FLAGS + ["--unshuffled"],
                 "config7": CONFIG1_FLAGS + ["--parallel-folds"],
-                "config5": CONFIG5_FLAGS}
+                "config5": CONFIG5_FLAGS, **SEQUENCE_FLAGS}
 
 # published H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -654,6 +696,9 @@ TRAIN_EPOCHS = 2  # the configs train 10
 #   run: the card runs training's ``capturable`` Adam, whose step count is
 #   float32, and the CPU ``Float32CountAdam``, the same arithmetic
 #   written out.
+# A network of ``FLOAT32_PARAM_STEPS`` holds its float32 params after its
+# first steps only; one of ``SORTING`` takes the CPU's sort picks on the
+# card.
 # Each float32 check must pass the CPU against itself with the batch's
 # rows permuted (``cpu_rows_permuted``), and each check must fail a
 # planted fault: the head's bias with its updates skipped (``planted``),
@@ -669,7 +714,92 @@ BY_GRADIENT = {
     "config4_unshuffled": ("breath_block.conv0.",),
     "config7": ("breath_block.conv0.",),
     "config5": ("breath_block.conv0.",),
+    # the LSTM-only networks have no conv
+    **{name: () if name in LSTM_ONLY else ("breath_block.conv0.",)
+       for name in SEQUENCE_FLAGS},
 }
+# Networks that select by sorting: each window's feature at the lower
+# median (cnn_linear_compr_to_rf), or the mean of the middle two (the
+# nested networks' window medians).  Where two candidates are within
+# rounding of each other, two runs can pick different breaths: the value
+# is the same, but the gradient goes to another breath, and the params
+# part by far more than rounding.  So card_vs_cpu records every
+# ``torch.sort`` of the CPU's float64 run (and gradients) and replays it
+# in every other run, card and CPU: each picks the same breaths and every
+# step is held.  The card's own sort is held apart, by ``sort_mode``'s
+# bound.
+SORTING = ("cnn_linear_compr_to_rf",) + NESTED_NETWORKS
+# float32 params held after this many of the 3 steps, the later ones by
+# the float64 run and the float32 losses alone: the nested transformer's
+# float32 params on the card part from the CPU's by a little more than
+# 1e-5 in a few backbone conv elements after steps 2 and 3, with the same
+# picks, while float64 agrees to rounding (``cpu_vs_float64`` and
+# ``device_vs_float64`` read each side's float32 distance from float64)
+FLOAT32_PARAM_STEPS = {"cnn_to_nested_transformer": 1}
+
+
+def remapped(permuted, nested):
+    """Recorded sort indices as a run over rows permuted by ``permuted``
+    (card_vs_cpu's control) reads them: a nested window's breaths, the
+    sorted axis, reordered; else the batch's samples."""
+    import torch
+
+    if nested:
+        inverse = torch.as_tensor(np.argsort(permuted))
+        return lambda indices: inverse[indices]
+    return lambda indices: indices[torch.as_tensor(permuted)]
+
+
+def sort_mode(records, replay=None, remap=None, gaps=None):
+    """A mode over one run: each ``torch.sort`` it calls is recorded in
+    ``records`` as (indices, input), both on the CPU; or, with ``replay``
+    (a run's records, in call order), answered with the recorded indices
+    (mapped by ``remap`` for a run over permuted rows) and its own input's
+    values at them, so that the run picks the elements the recorded one
+    picked and its gradient reaches them.  With ``gaps``, each replayed
+    call also sorts for itself and appends {own: the largest distance of
+    its own sorted values from the replayed ones, bound: twice the largest
+    distance of its input from the recorded one, rank_off: ``own`` for
+    indices one rank off}: sorting moves no value by more than its input
+    moved, so ``own`` must stay within ``bound``, and ``rank_off`` (a
+    faulty sort) must not."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    pending = iter(replay or ())
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if func is not torch.sort:
+                return out
+            x = args[0]
+            if replay is None:
+                records.append((out.indices.cpu(), x.detach().cpu()))
+                return out
+            dim = kwargs.get("dim", args[1] if len(args) > 1 else -1)
+            indices, recorded = next(pending)
+            if remap is not None:
+                indices = remap(indices)
+            indices = indices.to(x.device)
+            values = torch.gather(x, dim, indices)
+            if gaps is not None:
+                own = out.values.detach().double()
+                off = torch.gather(x.detach(), dim, indices.roll(1, dim))
+                moved = (x.detach().cpu().double() - recorded.double()).abs()
+                gaps.append({
+                    "own": float((own - values.detach()).abs().max()),
+                    "bound": 2 * float(moved.max()),
+                    "rank_off": float((own - off).abs().max())})
+            return torch.return_types.sort((values, indices))
+
+    return Mode()
+
+
+# a nested network's step in card_vs_cpu: one patient of NESTED_REAL
+# windows in a bucket of NESTED_BUCKET (as many breaths as config 1's batch)
+NESTED_REAL, NESTED_BUCKET = 12, 16
 TRAIN_SERVE_ATOL = 1e-5  # the same params and batch on one device
 MEASURE_WINDOWS = 4096  # the device-cache epoch timed: 256 steps of 16
 STEP_NUMBERS = {}  # config -> train_numbers' readings of this run
@@ -863,15 +993,28 @@ class Float32CountAdam:
 
 
 def train_card_vs_cpu(device, name="config1"):
-    """Three steps of config ``name``'s network at full width and batch,
-    dropout off, on the device and on the CPU from the same params and
-    batches, in float32 and in float64: losses and every param element
-    after each step, as ``TRAIN_STEP_ATOL`` says, with the controls it
-    names."""
+    """Three steps of config ``name``'s network at full width and batch
+    (a nested network: one patient of NESTED_REAL windows a step), dropout
+    off, on the device and on the CPU from the same params and batches,
+    in float32 and in float64: losses and every param element after each
+    step, as ``TRAIN_STEP_ATOL`` says, with the controls it names; a
+    network of SORTING takes the CPU run's picks on the card, and the
+    card's own sort is held by ``sort_mode``'s bound.  When a check fails,
+    its readings are printed (``card_vs_cpu_failed``) before it raises."""
+    fields = {"atol": TRAIN_STEP_ATOL, "by_gradient": {}}
+    try:
+        return _train_card_vs_cpu(device, name, fields)
+    except AssertionError:
+        emit("card_vs_cpu_failed", network=name, **fields)
+        raise
+
+
+def _train_card_vs_cpu(device, name, fields):
     import torch
 
     from deepards_tpu_torch.data.pipeline import transform_batch
     from deepards_tpu_torch.train.loop import Trainer
+    from deepards_tpu_torch.train.nested_trainer import make_nested_steps
     from deepards_tpu_torch.train.steps import (
         TrainState,
         make_optimizer,
@@ -881,15 +1024,30 @@ def train_card_vs_cpu(device, name="config1"):
     conf = config_conf(name, "--device", "cpu")
     s, batch = conf.n_sub_batches, conf.batch_size
     rng = np.random.default_rng(SEED + 2)
-    raw = make_windows(rng, 3 * batch, s)
-    mu = np.float32([raw.mean()])
-    std = np.float32([raw.std()])
-    targets = random_targets(rng, 3 * batch, conf)
-    mask = np.ones(batch, np.float32)
-    mask[-1] = 0.0  # one pad row
-    # the batch's rows in another order, the pad row last
-    permuted = np.append(rng.permutation(batch - 1), batch - 1)
     trainer = Trainer(conf, verbose=False)
+    nested = trainer.spec.super_batch
+    if nested:
+        # a step is one patient: NESTED_REAL windows padded to its bucket,
+        # and the "rows permuted" control reorders each window's breaths
+        # (its norm's sums; its median is the same)
+        raw = np.zeros((3, NESTED_BUCKET, s, C, L), np.float32)
+        raw[:, :NESTED_REAL] = make_windows(
+            rng, 3 * NESTED_REAL, s).reshape(3, NESTED_REAL, s, C, L)
+        mu = np.float32([raw[:, :NESTED_REAL].mean()])
+        std = np.float32([raw[:, :NESTED_REAL].std()])
+        targets = random_targets(rng, 3, conf)[:, None]
+        mask = np.zeros((1, NESTED_BUCKET), np.float32)
+        mask[0, :NESTED_REAL] = 1.0
+        permuted = rng.permutation(s)
+    else:
+        raw = make_windows(rng, 3 * batch, s)
+        mu = np.float32([raw.mean()])
+        std = np.float32([raw.std()])
+        targets = random_targets(rng, 3 * batch, conf)
+        mask = np.ones(batch, np.float32)
+        mask[-1] = 0.0  # one pad row
+        # the batch's rows in another order, the pad row last
+        permuted = np.append(rng.permutation(batch - 1), batch - 1)
     trainer.n_sub_batches = s
     model = trainer.build_model().reset_parameters(
         torch.Generator().manual_seed(SEED))
@@ -899,6 +1057,15 @@ def train_card_vs_cpu(device, name="config1"):
     by_gradient = [n for n in names if n.startswith(BY_GRADIENT[name])]
     adam = conf.optimizer == "adam"
     limit = TRAIN_STEP_ATOL["params"]
+    sorts = name in SORTING
+
+    def sorting(fn, replay=None, remap=None, gaps=None):
+        """(fn(), its sorts' records), ``replay``ing a run's records."""
+        records = []
+        if not sorts:
+            return fn(), records
+        with sort_mode(records, replay, remap, gaps):
+            return fn(), records
 
     def build(dev, dtype):
         model = trainer.build_model()
@@ -910,21 +1077,32 @@ def train_card_vs_cpu(device, name="config1"):
                 for x in arrays]
 
     def batch_of(k, dev, dtype, rows=slice(None)):
+        if nested:
+            return on(dev, dtype, raw[k:k + 1][:, :, rows], targets[k],
+                      mask)
         sl = slice(k * batch, (k + 1) * batch)
         return on(dev, dtype, raw[sl][rows], targets[sl][rows], mask[rows])
 
     def steps(dev, dtype, model, optimizer):
         mu_d, std_d = on(dev, dtype, mu, std)
         state = TrainState(model, optimizer, torch.Generator(device=dev))
-        step, _ = make_train_step(
-            trainer.loss_fn,
-            transform=lambda d: transform_batch(d, mu_d, std_d),
-            dropout_active=False, target_mode=trainer.spec.target_mode)
+        if nested:
+            step, _ = make_nested_steps(
+                trainer.loss_fn,
+                transform=lambda d: transform_batch(d, mu_d, std_d),
+                dropout_active=False)
+        else:
+            step, _ = make_train_step(
+                trainer.loss_fn,
+                transform=lambda d: transform_batch(d, mu_d, std_d),
+                dropout_active=False, target_mode=trainer.spec.target_mode)
         return state, step
 
-    def run(dev, dtype, rows=slice(None), reference=True):
-        """Losses, and params after each step.  Training's optimizer; on
-        the CPU Adam is ``Float32CountAdam`` unless not ``reference``."""
+    def run(dev, dtype, rows=slice(None), reference=True, replay=None,
+            remap=None, gaps=None):
+        """Losses, params after each step, and the steps' sorts.
+        Training's optimizer; on the CPU Adam is ``Float32CountAdam``
+        unless not ``reference``."""
         model = build(dev, dtype)
         if adam and dev == "cpu" and reference:
             optimizer = Float32CountAdam(model.parameters(),
@@ -937,25 +1115,33 @@ def train_card_vs_cpu(device, name="config1"):
                 clip_grad=bool(conf.get("clip_grad")),
                 clip_val=conf.clip_val)
         state, step = steps(dev, dtype, model, optimizer)
-        losses, params = [], []
-        for k in range(3):
-            losses.append(float(step(state, *batch_of(k, dev, dtype, rows))))
-            # a copy: .to() of a float64 CPU tensor is the tensor itself,
-            # which the next step changes
-            params.append({n: v.detach().to("cpu", torch.float64, copy=True)
-                           for n, v in model.state_dict().items()})
-        return losses, params
 
-    def gradients(dev, dtype, k):
+        def three():
+            losses, params = [], []
+            for k in range(3):
+                losses.append(float(step(state, *batch_of(k, dev, dtype,
+                                                          rows))))
+                # a copy: .to() of a float64 CPU tensor is the tensor
+                # itself, which the next step changes
+                params.append({n: v.detach().to("cpu", torch.float64,
+                                                copy=True)
+                               for n, v in model.state_dict().items()})
+            return losses, params
+
+        (losses, params), records = sorting(three, replay, remap, gaps)
+        return losses, params, records
+
+    def gradients(dev, dtype, k, replay=None):
         """Every param's gradient (before any clamp) at the init for
-        batch k: the train step with an optimizer that only zeroes the
-        grads (torch's foreach Nesterov SGD adds its momentum into them
-        in place)."""
+        batch k, and the step's sorts: the train step with an optimizer
+        that only zeroes the grads (torch's foreach Nesterov SGD adds its
+        momentum into them in place)."""
         model = build(dev, dtype)
         state, step = steps(dev, dtype, model, GradientsOnly(model))
-        step(state, *batch_of(k, dev, dtype))
+        _, records = sorting(lambda: step(state, *batch_of(k, dev, dtype)),
+                             replay)
         return {n: p.grad.detach().to("cpu", torch.float64, copy=True)
-                for n, p in model.named_parameters()}
+                for n, p in model.named_parameters()}, records
 
     def over(got, want, held=None, skip=None):
         """Per held tensor, the count of elements beyond the params limit
@@ -974,11 +1160,15 @@ def train_card_vs_cpu(device, name="config1"):
         worst = max(errs, key=errs.get)
         return errs[worst], worst
 
-    exact = [gradients("cpu", torch.float64, k) for k in range(3)]
-    single = {side: [gradients(dev, torch.float32, k) for k in range(3)]
-              for side, dev in (("cpu", "cpu"), ("device", device))}
     failed = []
-    fields = {"atol": TRAIN_STEP_ATOL, "by_gradient": {}}
+    exact = single = {}
+    if by_gradient or adam:
+        # float64 on the CPU; float32 on each side with float64's picks
+        exact, grad_sorts = zip(*[gradients("cpu", torch.float64, k)
+                                  for k in range(3)])
+        single = {side: [gradients(dev, torch.float32, k, grad_sorts[k])[0]
+                         for k in range(3)]
+                  for side, dev in (("cpu", "cpu"), ("device", device))}
     for n in by_gradient:
         scale = max(float(g[n].abs().max()) for g in exact)
         check = fields["by_gradient"][n] = {
@@ -1016,21 +1206,45 @@ def train_card_vs_cpu(device, name="config1"):
         fields["skipped_noise_level"] = {
             n: int(m.sum()) for n, m in noise_level.items() if m.any()}
     del single
-    for dtype_name, dtype in (("float32", torch.float32),
-                              ("float64", torch.float64)):
+    # float64 first: its CPU run's sorts are replayed in every other run
+    exact_steps = exact_sorts = None
+    for dtype_name, dtype in (("float64", torch.float64),
+                              ("float32", torch.float32)):
         f32 = dtype == torch.float32
-        cpu_losses, cpu_steps = run("cpu", dtype)
-        dev_losses, dev_steps = run(device, dtype)
+        cpu_losses, cpu_steps, cpu_sorts = run("cpu", dtype,
+                                               replay=exact_sorts)
+        gaps = []
+        dev_losses, dev_steps, _ = run(device, dtype,
+                                       replay=exact_sorts or cpu_sorts,
+                                       gaps=gaps)
         held = [n for n in cpu_steps[0] if not (f32 and n in by_gradient)]
-        held_steps = (1,) if f32 and adam else (1, 2, 3)
+        held_steps = (1, 2, 3)
+        if f32:
+            held_steps = held_steps[:1 if adam else
+                                    FLOAT32_PARAM_STEPS.get(name, 3)]
         skip = noise_level if f32 and adam else None
         loss_errs = np.abs(np.subtract(dev_losses, cpu_losses))
+        # a step's loss is the forward's, before its update
         held_losses = 2 if f32 and adam else 3
         loss_err = float(np.max(loss_errs[:held_losses]))
         record = fields[dtype_name] = {
             "losses_device": dev_losses, "losses_cpu": cpu_losses,
             "max_abs_loss_by_step": loss_errs.tolist(),
             "losses_held": held_losses, "params_held_after_steps": held_steps}
+        if sorts:
+            # the card's own sort by step: within its bound, and the
+            # planted sort one rank off beyond it
+            record["own_sort"] = gaps
+            if len(gaps) != 3:
+                failed.append("{}: {} sorts replayed in 3 steps".format(
+                    dtype_name, len(gaps)))
+            if any(g["own"] > g["bound"] * (1 + 1e-9) for g in gaps):
+                failed.append("{} the card's own sort {}".format(
+                    dtype_name, gaps))
+            if any(g["rank_off"] <= g["bound"] for g in gaps):
+                raise AssertionError("the {} sort check would pass a sort "
+                                     "one rank off: {}".format(dtype_name,
+                                                               gaps))
         if loss_err > TRAIN_STEP_ATOL["loss"]:
             failed.append("{} loss {}".format(dtype_name, loss_err))
 
@@ -1053,21 +1267,37 @@ def train_card_vs_cpu(device, name="config1"):
                 failed.append("{} after step {}: elements over {}: {}".format(
                     dtype_name, k, limit, reading["over_atol_held"]))
         # planted: the card's params after the last held step with the
-        # head's bias left at its init
+        # head's bias left at its init, or the held tensor the steps move
+        # most where they move the head's bias less than the limit (a
+        # patient's class from step to step pulls it back and forth)
         last = held_steps[-1]
+        moved = {n: float((cpu_steps[last - 1][n] - init[n].double())
+                          .abs().max()) for n in held}
+        fault = head_bias if moved.get(head_bias, 0.0) > limit else max(
+            moved, key=moved.get)
         planted = dict(dev_steps[last - 1])
-        planted[head_bias] = init[head_bias].double()
+        planted[fault] = init[fault].double()
         caught = over(planted, cpu_steps[last - 1], held,
                       skip if last == 1 else None)
-        record["planted"] = {"fault": head_bias + " not updated",
+        record["planted"] = {"fault": fault + " not updated",
                              "after_step": last,
                              "over_atol": sum(caught.values())}
         if not caught:
             raise AssertionError("the {} check would pass {} left at its "
-                                 "init".format(dtype_name, head_bias))
+                                 "init".format(dtype_name, fault))
         if f32:
+            # each side's float32 against float64, the same picks
+            for side, got_steps in (("cpu", cpu_steps),
+                                    ("device", dev_steps)):
+                record["{}_vs_float64".format(side)] = [
+                    {"max_abs": largest(got, want)[0],
+                     "over_atol_held": over(got, want, held)}
+                    for got, want in zip(got_steps, exact_steps)]
             # the CPU against itself with the batch's rows permuted
-            perm_losses, perm_steps = run("cpu", dtype, rows=permuted)
+            perm_losses, perm_steps, _ = run("cpu", dtype, rows=permuted,
+                                             replay=exact_sorts,
+                                             remap=remapped(permuted,
+                                                            nested))
             spread = record["cpu_rows_permuted"] = {
                 "max_abs_loss_by_step": np.abs(np.subtract(
                     perm_losses, cpu_losses)).tolist(),
@@ -1087,7 +1317,7 @@ def train_card_vs_cpu(device, name="config1"):
                                              n, moved))
             if adam:
                 # torch's own Adam on the CPU: float64 bias corrections
-                _, torch_steps = run("cpu", dtype, reference=False)
+                _, torch_steps, _ = run("cpu", dtype, reference=False)
                 caught = over(torch_steps[-1], cpu_steps[-1])
                 record["planted_float64_bias_correction"] = {
                     "after_step": 3, "over_atol": sum(caught.values())}
@@ -1095,6 +1325,7 @@ def train_card_vs_cpu(device, name="config1"):
                     raise AssertionError(
                         "the float64 check would pass Adam with float64 "
                         "bias corrections")
+            exact_steps, exact_sorts = cpu_steps, cpu_sorts
     if failed:
         raise AssertionError("{} card vs CPU after 3 steps: {}".format(
             name, "; ".join(failed)))
@@ -1115,7 +1346,9 @@ def train_to_serve(trainer, models_dir, device, name="config1"):
     """The last fold's checkpoint served: one /predict over HTTP, whose
     probabilities must be the trainer's final model's on the same
     normalized batch with the server's dropout seed, and the
-    deterministic logits of the served model against the trainer's."""
+    deterministic logits of the served model against the trainer's.  A
+    nested network's request is one patient of NESTED_REAL windows, which
+    the server pads to NESTED_BUCKET and masks."""
     import torch
 
     from deepards_tpu_torch.cli.serve import (
@@ -1133,9 +1366,12 @@ def train_to_serve(trainer, models_dir, device, name="config1"):
                              n_sub_batches=conf.n_sub_batches,
                              batch_size=conf.batch_size,
                              scaling=ckpt.load_scaling(path),
-                             bn_scope=model.bn_scope, device=device)
+                             bn_scope=getattr(model, "bn_scope", "sequence"),
+                             device=device)
     engine.warm()
-    windows = make_windows(np.random.default_rng(SEED + 4), conf.batch_size,
+    nested = engine.super_batch
+    n = NESTED_REAL if nested else conf.batch_size
+    windows = make_windows(np.random.default_rng(SEED + 4), n,
                            conf.n_sub_batches)
     server = serve(engine, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1151,19 +1387,26 @@ def train_to_serve(trainer, models_dir, device, name="config1"):
     if thread.is_alive():
         raise RuntimeError("server thread did not stop")
     probs = np.stack([resp["prob_other"], resp["prob_ards"]], axis=1)
-    if probs.shape != (conf.batch_size, 2) or not np.isfinite(probs).all():
+    if probs.shape != (n, 2) or not np.isfinite(probs).all():
         raise AssertionError("bad served probabilities")
     x = torch.from_numpy(windows).to(engine.device)
+    kwargs = {}
+    if nested:
+        x = torch.cat([x, x.new_zeros((NESTED_BUCKET - n,) + x.shape[1:])])
+        x = x[None]
+        kwargs["window_mask"] = torch.arange(
+            NESTED_BUCKET, device=engine.device)[None] < n
     x = (x - engine._mu) / engine._std
 
     def logits(out):
-        return out[0] if isinstance(out, tuple) else out
+        out = out[0] if isinstance(out, tuple) else out
+        return out[0, :n] if nested else out
 
     with torch.no_grad():
-        got = logits(engine.model(x, True))
-        want = logits(model(x, True))
+        got = logits(engine.model(x, True, **kwargs))
+        want = logits(model(x, True, **kwargs))
         served = logits(model(x, engine.deterministic, torch.Generator(
-            device=engine.device).manual_seed(DROPOUT_SEED)))
+            device=engine.device).manual_seed(DROPOUT_SEED), **kwargs))
     err = float((got - want).abs().max())
     prob_err = float(np.abs(probs - softmax_probs(served.cpu())).max())
     if err > TRAIN_SERVE_ATOL or prob_err > TRAIN_SERVE_ATOL:
@@ -1172,7 +1415,7 @@ def train_to_serve(trainer, models_dir, device, name="config1"):
                              .format(err, prob_err))
     return {"checkpoint": os.path.basename(path), "max_abs_logit": err,
             "max_abs_served_prob": prob_err, "atol": TRAIN_SERVE_ATOL,
-            "bn_scope": model.bn_scope,
+            "bn_scope": getattr(model, "bn_scope", None),
             "served_deterministic": engine.deterministic}
 
 
@@ -1220,12 +1463,14 @@ def config_fold(name, workdir, device, graphs, ds, dropout=True, *flags):
 
 
 def train_numbers(workdir, device, name="config1",
-                  modes=(("eager", False), ("graphed", True))):
+                  modes=(("eager", False), ("graphed", True)),
+                  windows=MEASURE_WINDOWS, profile_reps=5):
     """Step times, profile, memory and epoch rate of config ``name``'s
     step (full width, its batch, bf16, dropout on) on the device-cache
     path, over a cache of MEASURE_WINDOWS random windows built directly:
     the steps run eagerly (``eager``) and as CUDA-graph replays
-    (``graphed``), as ``modes`` asks.  A step is the runner's train call
+    (``graphed``), as ``modes`` asks (``windows`` in place of
+    MEASURE_WINDOWS; the profile over ``profile_reps`` steps).  A step is the runner's train call
     over a batch already in its buffers; the epoch also gathers each batch
     on the card.  The build time and the peak memory cover the fold's
     state and the runner (the graphed one's warm-up, captures and
@@ -1234,9 +1479,8 @@ def train_numbers(workdir, device, name="config1",
 
     conf = config_conf(name)
     batch = conf.batch_size
-    ds = random_cache(np.random.default_rng(SEED + 3), MEASURE_WINDOWS,
-                      conf)
-    n = MEASURE_WINDOWS
+    ds = random_cache(np.random.default_rng(SEED + 3), windows, conf)
+    n = windows
     out = {}
     for mode, graphs in modes:
         torch.cuda.synchronize()
@@ -1259,8 +1503,8 @@ def train_numbers(workdir, device, name="config1",
                                warmup=1, reps=3) / 20
         eval_b2b_ms = cuda_ms(lambda: [runner.eval() for _ in range(20)],
                               warmup=1, reps=3) / 20
-        train_profile = device_breakdown(runner.train)
-        eval_profile = device_breakdown(runner.eval)
+        train_profile = device_breakdown(runner.train, reps=profile_reps)
+        eval_profile = device_breakdown(runner.eval, reps=profile_reps)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer.run_train_epoch(runner, ds, 0, 1)
@@ -1313,42 +1557,35 @@ GRAPH_ATOL = 1e-6
 
 def graph_vs_eager(workdir, device="cuda", name="config1"):
     """GRAPH_STEPS device-cache steps of config ``name`` from one fold
-    state, replayed as CUDA graphs and run eagerly, with cuDNN's
-    deterministic algorithms (its default backward sums in another order
-    from run to run), then an eval epoch over the same windows: float32
-    with dropout off, losses, every param and the eval outputs within
-    GRAPH_ATOL; bfloat16 with dropout on, losses and eval outputs within
-    GRAPH_ATOL and the dropout generator in the same state after the
-    steps.  Returns (fields, failures)."""
+    state (a nested network: ``NESTED_GRAPH_PATIENTS``' patients, two
+    buckets whose graphs share one pool), replayed as CUDA graphs and run
+    eagerly, with cuDNN's deterministic algorithms (its default backward
+    sums in another order from run to run), then an eval epoch over the
+    same windows: float32 with dropout off, losses, every param and the
+    eval outputs within GRAPH_ATOL; bfloat16 with dropout on, losses and
+    eval outputs within GRAPH_ATOL and the dropout generator in the same
+    state after the steps.  Returns (fields, failures)."""
     import torch
 
-    from deepards_tpu_torch.train.loop import _epoch_order
+    from deepards_tpu_torch.models.registry import get_network_spec
 
     conf = config_conf(name)
-    batch, s = conf.batch_size, conf.n_sub_batches
     rng = np.random.default_rng(SEED + 6)
-    ds = random_cache(rng, GRAPH_STEPS * batch, conf)
-    ds.cache.data[:] = make_windows(rng, GRAPH_STEPS * batch, s)
-    ids, masks = _epoch_order(rng.permutation(GRAPH_STEPS * batch), batch)
-    masks[-1, -3:] = 0.0  # pad rows in the last batch
+    if get_network_spec(conf.network).super_batch:
+        run = nested_graph_run(workdir, device, name, rng)
+        steps = len(NESTED_GRAPH_PATIENTS)
+    else:
+        run = standard_graph_run(workdir, device, name, rng)
+        steps = GRAPH_STEPS
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    fields = {"steps": GRAPH_STEPS, "atol": GRAPH_ATOL}
+    fields = {"steps": steps, "atol": GRAPH_ATOL}
     failed = []
     try:
         for dtype, dropout in (("float32", False), ("bfloat16", True)):
             runs = {}
             for graphs in (False, True):
-                trainer, runner = config_fold(
-                    name, workdir, device, graphs, ds, dropout,
-                    "--compute-dtype", dtype)
-                state = runner.state
-                losses, _ = trainer._device_steps(runner, ds, ids, masks,
-                                                  True)
-                # then an eval epoch over the same windows (dropout as in
-                # the trainer's eval)
-                _, outs = trainer._device_steps(runner, ds, ids, masks,
-                                                False)
+                losses, state, outs = run(graphs, dtype, dropout)
                 runs[graphs] = (
                     losses.cpu(),
                     {k: v.detach().cpu()
@@ -1379,6 +1616,88 @@ def graph_vs_eager(workdir, device="cuda", name="config1"):
     finally:
         torch.backends.cudnn.deterministic = deterministic
     return fields, failed
+
+
+def standard_graph_run(workdir, device, name, rng):
+    """``run(graphs, dtype, dropout)`` for ``graph_vs_eager``: GRAPH_STEPS
+    device-cache train steps of config ``name`` from fold 0's state, then
+    an eval epoch over the same windows; (losses, state, eval outputs)."""
+    from deepards_tpu_torch.train.loop import _epoch_order
+
+    conf = config_conf(name)
+    batch, s = conf.batch_size, conf.n_sub_batches
+    ds = random_cache(rng, GRAPH_STEPS * batch, conf)
+    ds.cache.data[:] = make_windows(rng, GRAPH_STEPS * batch, s)
+    ids, masks = _epoch_order(rng.permutation(GRAPH_STEPS * batch), batch)
+    masks[-1, -3:] = 0.0  # pad rows in the last batch
+
+    def run(graphs, dtype, dropout):
+        trainer, runner = config_fold(name, workdir, device, graphs, ds,
+                                      dropout, "--compute-dtype", dtype)
+        losses, _ = trainer._device_steps(runner, ds, ids, masks, True)
+        # then an eval epoch over the same windows (dropout as in the
+        # trainer's eval)
+        _, outs = trainer._device_steps(runner, ds, ids, masks, False)
+        return losses, runner.state, outs
+
+    return run
+
+
+# graph_vs_eager of a nested network: patients of these window counts
+# (buckets 16 and 32, in turn), each trained on then evaluated
+NESTED_GRAPH_PATIENTS = (12, 20, 9, 20)
+
+
+def nested_fold(name, workdir, device, dtype, *flags):
+    """A ``NestedTrainer`` of ``name``'s flags with fold 0's state built
+    without a cohort (S windows of the config)."""
+    from deepards_tpu_torch.train.nested_trainer import NestedTrainer
+
+    conf = config_conf(name, "--device", device, "--results-dir",
+                       os.path.join(workdir, "measure"), "--compute-dtype",
+                       dtype, *flags)
+    trainer = NestedTrainer(conf, verbose=False)
+    trainer.n_sub_batches = conf.n_sub_batches
+    return trainer, trainer.new_state(0)
+
+
+def nested_runners(trainer, state, graphs, dropout=True):
+    """The trainer's ``BucketRunners`` over unit scaling: CUDA-graph
+    replays with ``graphs`` on the card, else eager."""
+    import torch
+
+    from deepards_tpu_torch.data.pipeline import transform_batch
+
+    zero = torch.zeros(1, device=trainer.device)
+    one = torch.ones(1, device=trainer.device)
+    return trainer.nested_runners(
+        state, lambda d: transform_batch(d, zero, one),
+        (trainer.n_sub_batches, C, L),
+        graphs and trainer.device.type == "cuda", dropout)
+
+
+def nested_graph_run(workdir, device, name, rng):
+    """``run(graphs, dtype, dropout)`` for ``graph_vs_eager``: a train
+    step per patient of NESTED_GRAPH_PATIENTS from fold 0's state, then an
+    eval of each; (losses, state, eval logits)."""
+    import torch
+
+    conf = config_conf(name)
+    n = sum(NESTED_GRAPH_PATIENTS)
+    ds = random_cache(rng, n, conf)
+    ds.cache.data[:] = make_windows(rng, n, conf.n_sub_batches)
+    bounds = np.cumsum((0,) + NESTED_GRAPH_PATIENTS)
+    groups = [(str(k), np.arange(lo, hi), k % 2)
+              for k, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))]
+
+    def run(graphs, dtype, dropout):
+        trainer, state = nested_fold(name, workdir, device, dtype)
+        runners = nested_runners(trainer, state, graphs, dropout)
+        losses, _ = trainer.patient_steps(runners, ds, groups, True)
+        _, outs = trainer.patient_steps(runners, ds, groups, False)
+        return losses, state, torch.cat(outs)
+
+    return run
 
 
 def phase_graph_vs_eager(workdir, device="cuda"):
@@ -2542,6 +2861,257 @@ def phase_config5(workdir, device="cuda"):
         raise AssertionError("config5 graphed vs eager: " + "; ".join(failed))
 
 
+
+# -- the sequence networks ----------------------------------------------------
+
+# their device-cache epoch, 64 steps of 16, and a profile of 2 steps (an
+# LSTM-only step is ~8,600 kernels, whose events the profiler is slow to
+# take in)
+SEQUENCE_MEASURE_WINDOWS = 1024
+NESTED_ATOL = 1e-5  # real windows' logits, padded vs their own bucket
+NESTED_PATIENT = 20  # windows of a synthetic patient (400 breaths of S = 20)
+# one real-size step: a 24 h patient is ~1,440 windows of 20 breaths, its
+# bucket 2,048 (40,960 breaths through densenet18); ~28 GB of saved
+# activations is an estimate from the tensors autograd saves on the CPU
+REAL_WINDOWS, REAL_BUCKET, REAL_ESTIMATE_GB = 1440, 2048, 28
+REAL_SIZE_NETWORK = "cnn_to_nested_lstm"
+
+
+def phase_sequence(workdir, device="cuda"):
+    """Each sequence network (SEQUENCE_FLAGS) on the device, its DTW
+    launches counted from 0 just before it and read just after: one JSON
+    line a network.  Returns {network: launches}."""
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+
+    launches, failed = {}, []
+    for name in SEQUENCE_FLAGS:
+        dtw_ops.launches = 0
+        fields, failures = sequence_path(workdir, name, device)
+        launches[name] = dtw_ops.launches
+        emit("sequence", network=name, **fields)
+        failed += failures
+    if failed:
+        raise AssertionError("sequence: " + "; ".join(failed))
+    return launches
+
+
+def sequence_path(workdir, name, device="cuda"):
+    """Network ``name`` trained through the CLI (every fold, one epoch), 3
+    float32 and float64 steps at full width held against the CPU, graphed
+    steps held to eager ones, a trained checkpoint served and predicted,
+    each held to the trainer; a nested network's padding held exact
+    (``nested_padding``); on the card the bf16 graphed step timed (a
+    nested network's at a synthetic patient's size, and REAL_SIZE_NETWORK
+    at a real patient's).  ``seconds`` times each stage on the host's
+    clock.  Returns (fields, failures)."""
+    seconds = {}
+
+    def timed(stage, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[stage] = time.perf_counter() - t0
+        return out
+
+    trainer, models_dir, run = timed("train", train_config, workdir, device,
+                                     name, 1)
+    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
+              "flags": CONFIG_FLAGS[name], "run": run,
+              "eval_logits_shape": list(trainer.last_eval["logits"].shape),
+              "card_vs_cpu": timed("card_vs_cpu", train_card_vs_cpu, device,
+                                   name)}
+    fields["graph_vs_eager"], failed = timed(
+        "graph_vs_eager", graph_vs_eager, workdir, device, name)
+    failed = ["{} graphed vs eager: {}".format(name, f) for f in failed]
+    fields["train_to_serve"] = timed("serve", train_to_serve, trainer,
+                                     models_dir, device, name)
+    cohort_dir, cohort = config_cohort(workdir, trainer.conf)
+    fields["predict"] = timed(
+        "predict", predict_vs_eval, CONFIG_FLAGS[name] + [
+            "--data-path", cohort_dir, "--cohort-file", cohort,
+            "--only-fold", "0", "--device", device],
+        os.path.join(models_dir, name + "-fold0"),
+        os.path.join(workdir, name))
+    nested = trainer.spec.super_batch
+    if nested:
+        fields["padding"] = timed("padding", nested_padding, workdir, device,
+                                  name)
+        if fields["padding"]["max_abs"] > NESTED_ATOL:
+            failed.append("{} padded logits {}".format(
+                name, fields["padding"]["max_abs"]))
+    if device == "cuda":
+        if nested:
+            fields["numbers"] = timed("numbers", nested_numbers, workdir,
+                                      device, name)
+        else:
+            fields["numbers"] = timed(
+                "numbers", train_numbers, workdir, device, name,
+                (("graphed", True),), SEQUENCE_MEASURE_WINDOWS,
+                # the profiler's cost goes with the kernels: ~8,600 an
+                # LSTM-only step
+                1 if name in LSTM_ONLY else 2)
+        if name == REAL_SIZE_NETWORK:
+            fields["real_size_step"] = timed("real_size", nested_real_size,
+                                             workdir, device, name)
+    fields["seconds"] = seconds
+    fields["phase_seconds"] = sum(seconds.values())
+    print("sequence {}: {} s {}".format(name, fields["phase_seconds"],
+                                        seconds), flush=True)
+    return fields, failed
+
+
+def nested_padding(workdir, device, name):
+    """A nested network's padding, float32 with dropout off, on the
+    device: a patient of NESTED_PATIENT real windows padded to 32 and to
+    64 (the RNN and LSTM: to 32 against its own 20, unpadded) must give
+    its real windows the same logits within NESTED_ATOL.  Planted: the
+    RNN and LSTM run the padded patient with its windows in reverse (pad
+    windows first) and the transformer without its window mask; each
+    must move those logits by more."""
+    import torch
+
+    from deepards_tpu_torch.train.nested_trainer import make_nested_steps
+
+    trainer, state = nested_fold(name, workdir, device, "float32")
+    _, eval_step = make_nested_steps(trainer.loss_fn, dropout_active=False)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 7)
+    w, s = NESTED_PATIENT, trainer.n_sub_batches
+    windows = torch.randn((w, s, C, L), generator=gen,
+                          device=trainer.device)
+    target = torch.tensor([[0.0, 1.0]], device=trainer.device)
+    transformer = name == "cnn_to_nested_transformer"
+
+    def logits(size, reverse=False, masked=True):
+        data = torch.zeros((1, size, s, C, L), device=trainer.device)
+        data[0, :w] = windows
+        mask = torch.zeros((1, size), device=trainer.device)
+        mask[0, :w] = 1.0
+        if reverse:
+            data, mask = data.flip(1), mask.flip(1)
+        if not masked:
+            mask = torch.ones_like(mask)
+        _, out = eval_step(state, data, target, mask)
+        out = out[0].flip(0) if reverse else out[0]
+        return out[:w].double().cpu()
+
+    own = logits(32 if transformer else w)
+    padded = logits(64 if transformer else 32)
+    planted = (logits(64, masked=False) if transformer
+               else logits(32, reverse=True))
+    fields = {"windows": w, "buckets": [32, 64] if transformer else [w, 32],
+              "max_abs": float((padded - own).abs().max()),
+              "atol": NESTED_ATOL,
+              "planted": "no window mask" if transformer
+              else "windows reversed, pad windows first",
+              "planted_max_abs": float((planted - own).abs().max())}
+    if fields["planted_max_abs"] <= NESTED_ATOL:
+        raise AssertionError("{}: the padding check would pass {}".format(
+            name, fields["planted"]))
+    return fields
+
+
+def nested_numbers(workdir, device, name):
+    """The bf16 graphed train and eval steps (dropout on) of a patient of
+    NESTED_PATIENT windows (bucket 32), with the runner's build time and
+    the peak memory of the build and the steps."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer, state = nested_fold(name, workdir, device, "bfloat16")
+    runners = nested_runners(trainer, state, True)
+    conf = trainer.conf
+    ds = random_cache(np.random.default_rng(SEED + 3), NESTED_PATIENT, conf)
+    groups = [("synthetic", np.arange(NESTED_PATIENT), 1)]
+    trainer.patient_steps(runners, ds, groups, True)  # builds the runner
+    torch.cuda.synchronize()
+    build_seconds = time.perf_counter() - t0
+    runner = runners[32]
+    out = {"windows": NESTED_PATIENT, "bucket": 32,
+           "breaths": 32 * conf.n_sub_batches, "compute_dtype": "bfloat16",
+           "step": step_profile(runner.train),
+           "eval": step_profile(runner.eval),
+           "runner_build_seconds": build_seconds,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - baseline}
+    print("numbers {}: {} ms a step, {} ms on the device, {} kernels".format(
+        name, out["step"]["ms"], out["step"]["device_ms"],
+        out["step"]["launches"]), flush=True)
+    return out
+
+
+def nested_real_size(workdir, device, name):
+    """One bf16 graphed train step of a REAL_WINDOWS-window patient in its
+    bucket, REAL_BUCKET, from seeded windows made on the card: its time,
+    device time and kernels, and the peak memory of the runner's build
+    (eager warm-up steps and the captures) beside REAL_ESTIMATE_GB.  A
+    bucket that does not fit in the card's memory gives way to the next
+    smaller one, filled to the same share of real windows; the largest
+    that fits is the reading."""
+    import gc
+
+    import torch
+
+    tried = []
+    size = REAL_BUCKET
+    while size >= 64:
+        w = REAL_WINDOWS * size // REAL_BUCKET
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        baseline = torch.cuda.memory_allocated()
+        try:
+            t0 = time.perf_counter()
+            trainer, state = nested_fold(name, workdir, device, "bfloat16")
+            runners = nested_runners(trainer, state, True)
+            runner = runners[size]
+            torch.cuda.synchronize()
+            build_seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - baseline
+            gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+            inputs = runner.inputs
+            inputs["data"][0, :w] = torch.randn(
+                (w,) + tuple(inputs["data"].shape[2:]), generator=gen,
+                device=trainer.device)
+            inputs["mask"][0, :w] = 1.0
+            inputs["mask"][0, w:] = 0.0
+            inputs["target"].copy_(torch.tensor([[0.0, 1.0]]))
+            ms = cuda_ms(runner.train, warmup=1, reps=3)
+            prof = device_breakdown(runner.train, reps=1, top=4)
+            loss = float(runner.train())
+            reading = {
+                "windows": w, "bucket": size,
+                "breaths": size * trainer.n_sub_batches,
+                "compute_dtype": "bfloat16", "ms": ms,
+                "device_ms": prof["device_ms_per_call"],
+                "launches": prof["kernel_launches_per_call"],
+                "device_idle_share": 1.0 - prof["device_ms_per_call"] / ms,
+                "top": prof["top"],
+                "runner_build_seconds": build_seconds,
+                "peak_memory_bytes": peak,
+                "memory_reserved_bytes": torch.cuda.memory_reserved(),
+                "estimate_gb": REAL_ESTIMATE_GB, "loss": loss,
+                "did_not_fit": tried}
+            if not np.isfinite(loss):
+                raise AssertionError("real-size step: loss {}".format(loss))
+            print("real-size {} step: {} windows in bucket {}: {} ms, peak "
+                  "{} GB (estimate {} GB)".format(
+                      name, w, size, ms, peak / 1e9, REAL_ESTIMATE_GB),
+                  flush=True)
+            return reading
+        except torch.cuda.OutOfMemoryError as exc:
+            tried.append({"bucket": size, "error": str(exc)[:200]})
+            print("real-size step: bucket {} does not fit".format(size),
+                  flush=True)
+        finally:
+            trainer = state = runners = runner = inputs = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        size //= 2
+    raise AssertionError("no real-size bucket fits: {}".format(tried))
+
+
 # the DTW heterogeneity sweep: the reference hetero runner's cohort of 80
 # patients (its ``hetero`` defaults: train_n 40, test_n 6), 60 windows each
 SIM_PATIENTS, SIM_WINDOWS, SIM_N_RANDOM = 80, 60, 50
@@ -3177,16 +3747,26 @@ def main():
     import deepards_tpu_torch.ops.dtw as dtw_ops
     from deepards_tpu_torch.ops.build import BUILD_DIR
 
-    smi = phase_env()
-    phase_build()
-    dtw_stats = phase_kernel()
+    # each phase's seconds on the host's clock, printed before the kernels
+    seconds = {}
+    began = time.perf_counter()
+
+    def timed(phase, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[phase] = seconds.get(phase, 0.0) + time.perf_counter() - t0
+        return out
+
+    smi = timed("env", phase_env)
+    timed("build", phase_build)
+    dtw_stats = timed("kernel", phase_kernel)
 
     # the main path: counts from 0 just before it, read just after
     dtw_ops.launches = 0
     BUILD_DIR.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        windows = phase_serve(work)
-    phase_dtw_served(windows)
+        windows = timed("serve", phase_serve, work)
+    timed("dtw_served", phase_dtw_served, windows)
     launches = dtw_ops.launches
     if launches == 0:
         raise AssertionError("the main path never launched the dtw kernel")
@@ -3196,32 +3776,36 @@ def main():
     by_path = {"serve": launches}
     dtw_ops.launches = 0
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        phase_train(work, smi)
-        phase_graph_vs_eager(work)
-        phase_config1_surface(work)
+        timed("train", phase_train, work, smi)
+        timed("graph_vs_eager", phase_graph_vs_eager, work)
+        timed("config1_surface", phase_config1_surface, work)
         by_path["config1"] = dtw_ops.launches
         for name in ("config2", "config3", "config4"):
             dtw_ops.launches = 0
-            phase_config(work, name)
+            timed(name, phase_config, work, name)
             by_path[name] = dtw_ops.launches
         for name, phase in (("config4_unshuffled", phase_config4_unshuffled),
                             ("config7", phase_config7),
                             ("config5", phase_config5)):
             dtw_ops.launches = 0
-            phase(work)
+            timed(name, phase, work)
             by_path[name] = dtw_ops.launches
         # the explain CLIs over config 1's and config 5's fold-0
         # checkpoints: the count from 0 just before dtw_clust (inside the
         # phase), read just after
-        by_path["explain"] = phase_explain(
-            work, cam_checkpoint=os.path.join(work, "config1_models",
-                                              "config1-fold0"),
+        by_path["explain"] = timed(
+            "explain", phase_explain, work,
+            cam_checkpoint=os.path.join(work, "config1_models",
+                                        "config1-fold0"),
             ppnet_checkpoint=os.path.join(work, "config5_models",
                                           "config5-fold0"),
             per_cell=dtw_stats["fp32_per_cell"])
         if not by_path["explain"]:
             raise AssertionError("the explain path never launched the dtw "
                                  "kernel")
+        # the sequence networks: each one's count from 0 just before it
+        # (inside the phase), read just after
+        by_path.update(timed("sequence", phase_sequence, work))
     training = {name: by_path[name] for name in CONFIG_FLAGS}
     emit("train_path_kernel_launches", dtw=training)
     if any(training.values()):
@@ -3232,13 +3816,15 @@ def main():
     # it (inside the phase, whose checks launch the kernel too), the CLI
     # chain's just before it, each read just after
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        by_path["dtw_similarity"] = phase_dtw_similarity(
-            work, per_cell=dtw_stats["fp32_per_cell"]["strip"])
+        by_path["dtw_similarity"] = timed(
+            "dtw_similarity", phase_dtw_similarity, work,
+            per_cell=dtw_stats["fp32_per_cell"]["strip"])
         dtw_ops.launches = 0
-        by_path["hetero"] = phase_hetero(work)
+        by_path["hetero"] = timed("hetero", phase_hetero, work)
         if dtw_ops.launches != by_path["hetero"]:
             raise AssertionError("hetero launches: {} counted, {} by step"
                                  .format(dtw_ops.launches, by_path["hetero"]))
+    emit("phase_seconds", total=time.perf_counter() - began, **seconds)
 
     print(json.dumps({"kernels": [{
         "name": "dtw",

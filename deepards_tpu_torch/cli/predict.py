@@ -13,8 +13,11 @@ pred_frac >= 0.5 votes ARDS), the JAX package's columns and fields, with
 ``csv`` and ``json``.
 
 A per-breath head's (cnn_lstm) window probabilities are the mean of its
-S windows' softmax, as in the JAX package.  A regressor is refused: the
-rows are class probabilities.
+S windows' softmax, as in the JAX package.  A nested network is
+predicted as its trainer evaluates it: one patient's windows a super
+batch (the JAX predict feeds it chunks of ``batch_size`` windows, each
+read as one patient's, and fails on the chunk's second row).  A regressor
+is refused: the rows are class probabilities.
 
 The dropout masks come from the checkpoint's generator, so the
 probabilities are those of the trainer's eval of the same checkpoint
@@ -31,10 +34,12 @@ import argparse
 import csv
 import json
 
+import numpy as np
 import torch
 
 from deepards_tpu_torch.data.pipeline import BatchPipeline
 from deepards_tpu_torch.train.loop import make_trainer
+from deepards_tpu_torch.train.nested_trainer import patient_groups
 from deepards_tpu_torch.train.steps import make_train_step
 
 WINDOW_COLUMNS = ["window_index", "patient", "hour", "prob_other",
@@ -55,32 +60,58 @@ def predict(conf, checkpoint_path, batch_size=16, device=None):
         train_ds.set_kfold_indexes_for_fold(fold)
         test_ds.set_kfold_indexes_for_fold(fold)
     state = trainer.restore_state(trainer.new_state(fold), checkpoint_path)
+    if trainer.spec.super_batch:
+        index, probs = _patient_probs(trainer, state, train_ds, test_ds)
+    else:
+        index, probs = _window_probs(trainer, state, train_ds, test_ds,
+                                     batch_size)
+    truth = test_ds.get_ground_truth()
+    row_of = {int(w): k for k, w in enumerate(truth.index)}
+    rows = []
+    for widx, prob in zip(index, probs):
+        k = row_of[int(widx)]
+        rows.append({
+            "window_index": int(widx),
+            "patient": str(truth.patient[k]),
+            "hour": float(truth.hour[k]),
+            "prob_other": float(prob[0]),
+            "prob_ards": float(prob[1]),
+            "prediction": int(prob.argmax()),
+        })
+    return rows, patient_votes(rows)
+
+
+def _window_probs(trainer, state, train_ds, test_ds, batch_size):
+    """The test windows in order, in batches of ``batch_size`` through the
+    trainer's eval step: (window indices, (n, 2) probabilities)."""
     _, eval_step = make_train_step(
         trainer.loss_fn, transform=BatchPipeline(train_ds, trainer.device),
         compute_dtype=trainer.compute_dtype,
         eval_dropout_active=not trainer.spec.eval_dropout_off,
         target_mode=trainer.spec.target_mode)
     idxs = test_ds.current_indices()
-    truth = test_ds.get_ground_truth()  # in the order of idxs
-    rows = []
+    probs = []
     for start in range(0, len(idxs), batch_size):
         chunk = idxs[start:start + batch_size]
         batch = trainer.device_batch(test_ds.gather(chunk), batch_size)
         _, logits = eval_step(state, **batch)
-        probs = torch.softmax(logits, dim=-1)[:len(chunk)]
-        if probs.ndim == 3:  # a per-breath head: the mean of its windows
-            probs = probs.mean(dim=1)
-        probs = probs.cpu().numpy()
-        for i, widx in enumerate(chunk):
-            rows.append({
-                "window_index": int(widx),
-                "patient": str(truth.patient[start + i]),
-                "hour": float(truth.hour[start + i]),
-                "prob_other": float(probs[i, 0]),
-                "prob_ards": float(probs[i, 1]),
-                "prediction": int(probs[i].argmax()),
-            })
-    return rows, patient_votes(rows)
+        prob = torch.softmax(logits, dim=-1)[:len(chunk)]
+        if prob.ndim == 3:  # a per-breath head: the mean of its windows
+            prob = prob.mean(dim=1)
+        probs.append(prob.cpu().numpy())
+    return idxs, np.concatenate(probs)
+
+
+def _patient_probs(trainer, state, train_ds, test_ds):
+    """A nested network's test windows as its trainer evaluates them: one
+    patient a super batch, patients sorted by id (eager steps)."""
+    runners = trainer.nested_runners(
+        state, BatchPipeline(train_ds, trainer.device),
+        train_ds.cache.data.shape[1:], graphed=False)
+    groups = patient_groups(test_ds)
+    _, outs = trainer.patient_steps(runners, test_ds, groups, train=False)
+    probs = torch.softmax(torch.cat(outs), dim=-1).cpu().numpy()
+    return np.concatenate([idxs for _, idxs, _ in groups]), probs
 
 
 def patient_votes(rows):

@@ -12,10 +12,14 @@ raw .npz upload (array under key "data", optional "patients").
 
 It serves any classifier of the registry; a per-breath head's window
 probabilities are the mean of its S windows' softmax, as the JAX server's
-are.  A regressor is not served: the answer is a softmax, which means
-nothing for a regressor.  Every dispatch is padded to the warm batch
-size.  The serving model uses per-sequence normalization statistics
-(bn_scope='sequence') so the zero pad rows cannot change real windows.
+are.  A nested (whole-patient) network scores each patient's windows of
+the request as one super batch, as its trainer evaluates a patient (all
+the windows as one patient when the request names none), zero-padded to
+the next power of two with the pad windows masked.  A regressor is not
+served: the answer is a softmax, which means nothing for a regressor.
+Every dispatch is padded to the warm batch size.  The serving model uses
+per-sequence normalization statistics (bn_scope='sequence') so the zero
+pad rows cannot change real windows.
 Dropout stays active at inference, as in the JAX package, with its
 generator reseeded to the same seed at every forward, so the same request
 always gets the same answer; a network whose trainer evaluates with
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from deepards_tpu_torch.device import resolve_device
+from deepards_tpu_torch.models.nested import bucket
 from deepards_tpu_torch.models.registry import (
     get_base_network,
     get_network_spec,
@@ -71,6 +76,7 @@ class InferenceEngine:
                 "a softmax that means nothing for it".format(
                     network, spec.kind))
         self.deterministic = spec.eval_dropout_off
+        self.super_batch = spec.super_batch
         model = spec.build(conf, get_base_network(conf), n_sub_batches)
         model.load_state_dict(ckpt.restore(checkpoint)["params"])
         self.model = model.to(self.device)
@@ -93,15 +99,15 @@ class InferenceEngine:
         self._lock = threading.Lock()
 
     @torch.inference_mode()
-    def _forward(self, data):
+    def _forward(self, data, **kwargs):
         x = (data - self._mu) / self._std
         self._generator.manual_seed(DROPOUT_SEED)
-        out = self.model(x, self.deterministic, self._generator)
+        out = self.model(x, self.deterministic, self._generator, **kwargs)
         if isinstance(out, tuple):
             out = out[0]  # a stateful head's (logits, carry)
         probs = torch.softmax(out, dim=-1)
-        if probs.ndim == 3:  # a per-breath head: the mean of its windows
-            probs = probs.mean(dim=1)
+        if probs.ndim == 3 and not self.super_batch:
+            probs = probs.mean(dim=1)  # a per-breath head: its windows' mean
         return probs
 
     def warm(self, channels=1, length=224):
@@ -114,12 +120,15 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def predict(self, data):
+    def predict(self, data, patients=None):
         """data: (N, S, C, L) -> (N, 2) probabilities, dispatched in
-        chunks padded to the warm batch size."""
+        chunks padded to the warm batch size (a nested network: one
+        super batch a patient of ``patients``)."""
         data = np.asarray(data, np.float32)
         if data.ndim == 3:
             data = data[None]
+        if self.super_batch:
+            return self._predict_patients(data, patients)
         n = data.shape[0]
         probs = []
         with self._lock:  # one device queue and one dropout generator
@@ -135,6 +144,27 @@ class InferenceEngine:
                 x = torch.from_numpy(chunk).to(self.device)
                 probs.append(self._forward(x)[:real].cpu().numpy())
         return np.concatenate(probs)
+
+    def _predict_patients(self, data, patients):
+        """Each patient's windows (in request order) as one (1, W, S, C, L)
+        super batch padded to a power of two, the pad windows masked."""
+        n = data.shape[0]
+        patients = np.asarray([""] * n if patients is None
+                              else [str(p) for p in patients])
+        probs = np.zeros((n, 2), np.float32)
+        with self._lock:
+            for patient in dict.fromkeys(patients.tolist()):
+                rows = np.flatnonzero(patients == patient)
+                w = len(rows)
+                x = np.zeros((1, bucket(w)) + data.shape[1:], np.float32)
+                x[0, :w] = data[rows]
+                mask = torch.zeros(1, x.shape[1], dtype=torch.bool,
+                                   device=self.device)
+                mask[0, :w] = True
+                out = self._forward(torch.from_numpy(x).to(self.device),
+                                    window_mask=mask)
+                probs[rows] = out[0, :w].cpu().numpy()
+        return probs
 
 
 def patient_votes(probs, patients):
@@ -198,7 +228,7 @@ def make_handler(engine):
                         [str(p) for p in z["patients"]]
                         if "patients" in z else None
                     )
-                probs = engine.predict(data)
+                probs = engine.predict(data, patients)
                 resp = {
                     "prob_other": probs[:, 0].tolist(),
                     "prob_ards": probs[:, 1].tolist(),

@@ -19,18 +19,10 @@ from deepards_tpu_torch.models.layers import (
     BatchStatNorm,
     avg_pool1d,
     conv_kernel_init,
+    dropout,
     global_avg_pool_flatten,
     max_pool1d,
 )
-
-
-def _dropout(h, rate, generator):
-    """Inverted dropout drawn from ``generator`` (which must live on
-    ``h``'s device): keep with probability 1-rate, scale kept values."""
-    keep_prob = 1.0 - rate
-    keep = torch.rand(
-        h.shape, generator=generator, device=h.device) < keep_prob
-    return torch.where(keep, h / keep_prob, torch.zeros_like(h))
 
 
 class DenseLayer(nn.Module):
@@ -50,7 +42,7 @@ class DenseLayer(nn.Module):
         h = F.relu(self.norm2(h, groups))
         h = self.conv2(h)
         if self.drop_rate > 0 and not deterministic:
-            h = _dropout(h, self.drop_rate, generator)
+            h = dropout(h, self.drop_rate, generator)
         return torch.cat([x, h], dim=1)
 
 
@@ -71,6 +63,7 @@ class DenseNet1D(nn.Module):
                  num_init_features=64, bn_size=4, drop_rate=0.2,
                  in_channels=1):
         super().__init__()
+        self.in_channels = in_channels
         self.block_config = tuple(block_config)
         self.conv0 = nn.Conv1d(
             in_channels, num_init_features, 7, stride=2, padding=3,

@@ -60,10 +60,95 @@ class CNNLinearNetwork(nn.Module):
             return self.head(flat)
         # float32 metadata beside bfloat16 features: the Dense runs in the
         # promoted type, as flax's Dense does for mixed inputs
-        meta = metadata.reshape(flat.shape[0], -1)
-        dtype = torch.promote_types(flat.dtype, meta.dtype)
-        return promoted_linear(
-            torch.cat([flat.to(dtype), meta.to(dtype)], dim=-1), self.head)
+        return promoted_linear(_concat_flat(flat, metadata), self.head)
+
+
+def _concat_flat(flat, metadata):
+    """(B, K) and the (B, S, M) metadata flattened, joined in their
+    promoted type, as ``jnp.concatenate`` joins them."""
+    meta = metadata.reshape(flat.shape[0], -1)
+    dtype = torch.promote_types(flat.dtype, meta.dtype)
+    return torch.cat([flat.to(dtype), meta.to(dtype)], dim=-1)
+
+
+class _WindowHead(nn.Module):
+    """A backbone and a Linear ``head`` over each window's features (or
+    over a pool of them): the heads below."""
+
+    def __init__(self, breath_block, bn_scope="batch", head_in=None):
+        super().__init__()
+        _check_bn_scope(bn_scope)
+        self.breath_block = breath_block
+        self.bn_scope = bn_scope
+        self.head = nn.Linear(head_in or breath_block.n_out_filters, 2)
+
+    def reset_parameters(self, generator=None):
+        self.breath_block.reset_parameters(generator)
+        dense_init(self.head, generator)
+        return self
+
+    def features(self, x, deterministic, generator):
+        return _window_features(
+            self.breath_block, x, self.bn_scope, deterministic, generator)
+
+
+class CNNSingleBreathLinearNetwork(_WindowHead):
+    """Per-window logits (B, S, 2) for the per-breath target."""
+
+    def forward(self, x, deterministic=False, generator=None, metadata=None):
+        return promoted_linear(self.features(x, deterministic, generator),
+                               self.head)
+
+
+class CNNLinearToMean(_WindowHead):
+    """The mean of the S windows' features -> Linear: (B, 2)."""
+
+    def forward(self, x, deterministic=False, generator=None, metadata=None):
+        feats = self.features(x, deterministic, generator)
+        return promoted_linear(feats.mean(dim=1), self.head)
+
+
+class CNNLinearComprToRF(_WindowHead):
+    """The LOWER median of the S windows' features (``sort(...)[(S-1)//2]``,
+    as the reference's ``torch.median``) -> Linear: (B, 2)."""
+
+    def forward(self, x, deterministic=False, generator=None, metadata=None):
+        feats = self.features(x, deterministic, generator)
+        s = feats.shape[1]
+        lower = torch.sort(feats, dim=1).values[:, (s - 1) // 2]
+        return promoted_linear(lower, self.head)
+
+
+class CNNDoubleLinearNetwork(nn.Module):
+    """A Linear(F, 2) over each window, then a Linear over the S windows'
+    flattened logits (and the metadata): (B, 2).  ``layers`` are flax's
+    ``Dense_0`` and ``Dense_1``."""
+
+    def __init__(self, breath_block, n_sub_batches, bn_scope="batch",
+                 metadata_features=0):
+        super().__init__()
+        _check_bn_scope(bn_scope)
+        self.breath_block = breath_block
+        self.bn_scope = bn_scope
+        self.metadata_features = metadata_features
+        self.layers = nn.ModuleList([
+            nn.Linear(breath_block.n_out_filters, 2),
+            nn.Linear(n_sub_batches * (2 + metadata_features), 2)])
+
+    def reset_parameters(self, generator=None):
+        self.breath_block.reset_parameters(generator)
+        for layer in self.layers:
+            dense_init(layer, generator)
+        return self
+
+    def forward(self, x, deterministic=False, generator=None, metadata=None):
+        feats = _window_features(
+            self.breath_block, x, self.bn_scope, deterministic, generator)
+        inter = promoted_linear(feats, self.layers[0])  # (B, S, 2)
+        flat = inter.reshape(inter.shape[0], -1)
+        if self.metadata_features:
+            flat = _concat_flat(flat, metadata)
+        return promoted_linear(flat, self.layers[1])
 
 
 class CNNRegressor(nn.Module):

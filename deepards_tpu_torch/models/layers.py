@@ -77,6 +77,15 @@ def dense_init(linear, generator=None):
     return linear
 
 
+def dropout(h, rate, generator):
+    """Inverted dropout drawn from ``generator`` (which must live on
+    ``h``'s device): keep with probability 1-rate, scale kept values."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(
+        h.shape, generator=generator, device=h.device) < keep_prob
+    return torch.where(keep, h / keep_prob, torch.zeros_like(h))
+
+
 def promoted_linear(x, linear):
     """``linear`` over ``x`` in the promoted type of the two, as flax's
     Dense computes a float32 input under bfloat16 params (and the

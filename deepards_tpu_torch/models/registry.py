@@ -1,10 +1,13 @@
 """Network registries: base backbones and composite-network specs.
 
 Counterpart of ``deepards_tpu/models/registry.py``, holding the entries
-the port has so far: the densenet and resnet backbones, ``cnn_linear``,
-``cnn_regressor``, ``metadata_only``, ``cnn_lstm``,
-``cnn_lstm_double_linear`` and ``protopnet``.  The JAX package's other
-entries raise ``NotImplementedError``.  ``conf`` is a mapping of
+the port has so far: the densenet and resnet backbones, the 1D heads
+(``cnn_linear`` and its variants, ``cnn_regressor``, ``metadata_only``),
+the recurrent and transformer networks (``cnn_lstm``,
+``cnn_lstm_double_linear``, ``lstm_only``, ``lstm_only_with_packing``,
+``double_lstm``, ``cnn_transformer``), the nested whole-patient networks
+and ``protopnet``.  The JAX package's other entries raise
+``NotImplementedError``.  ``conf`` is a mapping of
 configuration keys (``base_network``, ``bn_scope``, ``initial_planes``,
 ...).
 """
@@ -14,6 +17,7 @@ from typing import Callable
 from deepards_tpu_torch.models import (
     densenet1d,
     heads,
+    nested,
     protopnet1d,
     recurrent,
     resnet1d,
@@ -55,17 +59,7 @@ NOT_PORTED = {
          "se_resnext50_32x4d", "se_resnext101_32x4d", "unet", "basic_cnn_ae",
          "densenet18_2d", "densenet121_2d", "densenet18_2x1d"),
         "base network"),
-    **dict.fromkeys(
-        ("cnn_double_linear", "cnn_single_breath_linear",
-         "cnn_linear_to_mean", "cnn_linear_compr_to_rf", "autoencoder",
-         "siamese_pretrained"), "head"),
-    **dict.fromkeys(
-        ("lstm_only", "lstm_only_with_packing", "double_lstm"),
-        "recurrent network"),
-    "cnn_transformer": "transformer network",
-    **dict.fromkeys(
-        ("cnn_to_nested_rnn", "cnn_to_nested_lstm",
-         "cnn_to_nested_transformer"), "nested network (nested trainer)"),
+    **dict.fromkeys(("autoencoder", "siamese_pretrained"), "head"),
     "protopnet_2d": "network of the protopnet trainer",
     **dict.fromkeys(
         ("siamese_cnn_linear", "siamese_cnn_lstm",
@@ -109,6 +103,7 @@ class NetworkSpec:
     expand_obs_idx: bool = False  # per-breath heads repeat an index S times
     uses_metadata: bool = False  # reads the metadata input
     stateful_lstm: bool = False  # carries its LSTM state when unshuffled
+    super_batch: bool = False  # whole-patient super batches (NestedTrainer)
     eval_dropout_off: bool = False  # eval runs with dropout off
     trainer: str = "standard"  # standard|protopnet
 
@@ -130,11 +125,32 @@ def n_bm_features(conf):
     return 9
 
 
+def _simple(name, cls, **kw):
+    return NetworkSpec(
+        name, lambda conf, bb, s, m=0: cls(bb, bn_scope=_bn_scope(conf)),
+        **kw)
+
+
+def _hidden_units(conf):
+    return conf.get("time_series_hidden_units", 16) or 16
+
+
+def _lstm_only(cls):
+    """The networks without a backbone: ``bb`` is built all the same, as
+    the JAX trainer builds it, and carries the cache's C."""
+    return lambda conf, bb, s, m=0: cls(
+        s, in_channels=bb.in_channels, lstm_hidden_units=_hidden_units(conf))
+
+
+def _nested(name, build):
+    return NetworkSpec(name, build, target_mode="per_breath",
+                       expand_obs_idx=True, super_batch=True)
+
+
 def _lstm_options(conf, m):
     return dict(
-        lstm_hidden_units=conf.get("time_series_hidden_units", 16) or 16,
-        metadata_features=m, bm_to_linear=bool(conf.get("bm_to_linear")),
-        bn_scope=_bn_scope(conf))
+        lstm_hidden_units=_hidden_units(conf), metadata_features=m,
+        bm_to_linear=bool(conf.get("bm_to_linear")), bn_scope=_bn_scope(conf))
 
 
 NETWORK_MAP = {
@@ -146,6 +162,21 @@ NETWORK_MAP = {
         ),
         uses_metadata=True,
     ),
+    "cnn_double_linear": NetworkSpec(
+        "cnn_double_linear",
+        lambda conf, bb, s, m=0: heads.CNNDoubleLinearNetwork(
+            breath_block=bb, n_sub_batches=s, metadata_features=m,
+            bn_scope=_bn_scope(conf),
+        ),
+        uses_metadata=True,
+    ),
+    "cnn_single_breath_linear": _simple(
+        "cnn_single_breath_linear", heads.CNNSingleBreathLinearNetwork,
+        target_mode="per_breath", expand_obs_idx=True),
+    "cnn_linear_to_mean": _simple("cnn_linear_to_mean",
+                                  heads.CNNLinearToMean),
+    "cnn_linear_compr_to_rf": _simple("cnn_linear_compr_to_rf",
+                                      heads.CNNLinearComprToRF),
     "cnn_regressor": NetworkSpec(
         "cnn_regressor",
         lambda conf, bb, s, m=0: heads.CNNRegressor(
@@ -176,6 +207,34 @@ NETWORK_MAP = {
             breath_block=bb, n_sub_batches=s, **_lstm_options(conf, m)),
         uses_metadata=True,
     ),
+    "lstm_only": NetworkSpec(
+        "lstm_only", _lstm_only(recurrent.LSTMOnlyNetwork)),
+    "lstm_only_with_packing": NetworkSpec(
+        "lstm_only_with_packing", _lstm_only(recurrent.LSTMOnlyWithPacking)),
+    "double_lstm": NetworkSpec(
+        "double_lstm", _lstm_only(recurrent.DoubleLSTMNetwork)),
+    "cnn_transformer": NetworkSpec(
+        "cnn_transformer",
+        lambda conf, bb, s, m=0: recurrent.CNNTransformerNetwork(
+            breath_block=bb, hidden_units=_hidden_units(conf),
+            num_blocks=conf.get("transformer_blocks", 2) or 2,
+            metadata_features=m,
+            bm_to_linear=bool(conf.get("bm_to_linear")),
+            bn_scope=_bn_scope(conf)),
+        target_mode="per_breath",
+        expand_obs_idx=True,
+        uses_metadata=True,
+    ),
+    "cnn_to_nested_rnn": _nested(
+        "cnn_to_nested_rnn",
+        lambda conf, bb, s, m=0: nested.CNNToNestedRNNNetwork(bb)),
+    "cnn_to_nested_lstm": _nested(
+        "cnn_to_nested_lstm",
+        lambda conf, bb, s, m=0: nested.CNNToNestedLSTMNetwork(bb)),
+    "cnn_to_nested_transformer": _nested(
+        "cnn_to_nested_transformer",
+        lambda conf, bb, s, m=0: nested.CNNToNestedTransformerNetwork(
+            bb, transformer_blocks=conf.get("transformer_blocks", 2) or 2)),
     "protopnet": NetworkSpec(
         "protopnet",
         lambda conf, bb, s, m=0: protopnet1d.construct_ppnet(

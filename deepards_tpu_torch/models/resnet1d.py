@@ -86,6 +86,7 @@ class ResNet1D(nn.Module):
         if first_pool_type not in ("max", "avg"):
             raise ValueError("first_pool_type must be 'max' or 'avg'")
         self.first_pool_type = first_pool_type
+        self.in_channels = in_channels
         planes = initial_planes
         if double_conv_first:
             convs = [_conv(in_channels, planes, 3, 1, 1),

@@ -26,7 +26,7 @@ per fold for the init, and one per fold on the device for dropout.
 A network with an LSTM carry under ``unshuffled`` (cnn_lstm) takes the
 stateful fold instead: one window a step in patient order, the carry kept
 across a patient's windows (``run_stateful_fold``).  ``make_trainer``
-also gives the parallel-fold and ProtoPNet trainers.
+also gives the parallel-fold, ProtoPNet and nested trainers.
 """
 import contextlib
 import os
@@ -66,11 +66,12 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": None, None: None}
 
 
 def make_trainer(conf, **kwargs):
-    """The trainer a configuration asks for, dispatched as the JAX
-    package's (``deepards_tpu/train/loop.py:39-52``): all folds at once
-    with ``parallel_folds`` for a network of the standard trainer, the
-    ProtoPNet trainer for its network, else ``Trainer``.  The networks of
-    the trainers not ported yet are refused by ``get_network_spec``."""
+    """The trainer a configuration asks for, dispatched in the JAX
+    package's order (``deepards_tpu/train/loop.py:39-63``): all folds at
+    once with ``parallel_folds`` for a network of the standard trainer,
+    the ProtoPNet trainer for its network, the nested trainer for a
+    whole-patient network, else ``Trainer``.  The networks of the trainers
+    not ported yet are refused by ``get_network_spec``."""
     spec = get_network_spec(conf.network)
     if conf.get("parallel_folds") and spec.trainer == "standard":
         from deepards_tpu_torch.train.parallel_folds import (
@@ -84,6 +85,10 @@ def make_trainer(conf, **kwargs):
         )
 
         return ProtoPNetTrainer(conf, **kwargs)
+    if spec.super_batch:
+        from deepards_tpu_torch.train.nested_trainer import NestedTrainer
+
+        return NestedTrainer(conf, **kwargs)
     return Trainer(conf, **kwargs)
 
 
@@ -468,15 +473,22 @@ class Trainer:
                           meta_shape=meta_shape,
                           graphed=self.device.type == "cuda")
 
-    def run_fold(self, fold_num, train_dataset, test_dataset):
+    def fold_state(self, fold_num):
+        """``new_state``, then the checkpoint or the base network the
+        configuration loads."""
         conf = self.conf
-        self.last_train_count = len(train_dataset.current_indices())
-        self.last_test_count = len(test_dataset.current_indices())
         state = self.new_state(fold_num)
         if conf.get("load_checkpoint"):
             self.restore_state(state, conf.load_checkpoint)
         if conf.get("load_base_network"):
             self.load_base_network(state, conf.load_base_network)
+        return state
+
+    def run_fold(self, fold_num, train_dataset, test_dataset):
+        conf = self.conf
+        self.last_train_count = len(train_dataset.current_indices())
+        self.last_test_count = len(test_dataset.current_indices())
+        state = self.fold_state(fold_num)
         if self.spec.stateful_lstm and conf.get("unshuffled"):
             return self.run_stateful_fold(state, train_dataset, test_dataset,
                                           fold_num)

@@ -127,6 +127,13 @@ class ParallelFoldTrainer(Trainer):
         if self.spec.kind != "classifier" or self.spec.trainer != "standard":
             raise ValueError(
                 "parallel_folds supports standard classifier networks")
+        if self.spec.super_batch:
+            # the JAX package's parallel folds feed it batches of windows
+            # as if each were a patient and fail recording its eval
+            raise ValueError(
+                "parallel_folds: {} trains whole-patient super batches "
+                "(the nested trainer), not batches of windows".format(
+                    conf.network))
         self.resume_meta = None
         if conf.get("load_checkpoint"):
             self.resume_meta = checkpoint.load_resume_meta(

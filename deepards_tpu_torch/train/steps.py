@@ -194,14 +194,19 @@ class StepRunner:
     replay draws new dropout masks and advances it as an eager step does.  Capture binds the tensors it
     reads: the params, the optimizer state and the buffers must be
     changed in place from then on.  A capture that fails raises.
+    ``pool``: a ``torch.cuda.graph_pool_handle()`` whose memory the graphs
+    share with other runners' graphs (one step runs at a time, and what
+    a step returns is copied out before the next), in place of a private
+    pool per graph.
     """
 
     WARMUP_STEPS = 3  # eager steps before a capture
 
     def __init__(self, state, train_step, eval_step, data_shape,
                  target_width=2, meta_shape=None, graphed=False,
-                 extra_inputs=None):
+                 extra_inputs=None, pool=None):
         self.state = state
+        self.pool = pool
         self._train_step = train_step
         self._eval_step = eval_step
         device = next(state.model.parameters()).device
@@ -275,16 +280,18 @@ class StepRunner:
                 self.inputs[k].copy_(v)
         state.generator.set_state(saved_rng)
         state.optimizer.zero_grad()  # grads are allocated by the capture
+        # the warm-up's cached blocks cannot serve the graphs' pool
+        torch.cuda.empty_cache()
 
         graphs = {"train": torch.cuda.CUDAGraph()}
         if self._eval_step is not None:
             graphs["eval"] = torch.cuda.CUDAGraph()
         for graph in graphs.values():
             graph.register_generator_state(state.generator)
-        with torch.cuda.graph(graphs["train"]):
+        with torch.cuda.graph(graphs["train"], pool=self.pool):
             self._train_loss = self._train_step(state, **self.inputs)
         if self._eval_step is not None:
-            with torch.cuda.graph(graphs["eval"]):
+            with torch.cuda.graph(graphs["eval"], pool=self.pool):
                 self._eval_loss, self._eval_out = self._eval_step(
                     state, **self.inputs)
         state.step = saved_step

@@ -18,7 +18,13 @@ fixed names, and its indexed kinds, where ``Kind_k`` is entry k of a list.
 The backbone's family is ResNet when the tree has a ``BasicBlock_i`` or
 ``Bottleneck_i``, else DenseNet.  A network's ``Dense_0`` is its ``head``,
 unless it has a chain of Dense layers (``Dense_1`` too), which are
-``layers.k``; ``OptimizedLSTMCell_0`` is its ``lstm``.  A PPNet's
+``layers.k``; ``OptimizedLSTMCell_0`` is its ``lstm`` (``_1``, the double
+LSTM's second, its ``sequence_lstm``), ``SimpleCell_0`` its ``rnn``
+(Dense ``i`` the ``input``, ``h`` the ``hidden``), ``Transformer_0`` its
+``transformer``, whose ``Block_k`` are ``blocks.k``, each with its
+``MultiHeadAttention_0`` as ``attention`` and its ``LayerNorm_k`` and
+``Dense_k`` as ``norms.k`` and ``dense.k``.  A nested network's backbone
+is one ``breath_block`` shared by its windows.  A PPNet's
 ``add_on_layers/Conv_k`` are ``add_on_layers.convs.k``, its
 ``last_layer`` and ``prototype_vectors`` keep their names (the
 prototypes their layout too).
@@ -63,6 +69,14 @@ _RESNET = Family(indexed={**_RESNET_BLOCK.indexed,
 _LSTM_CELL = Family(fixed={
     **{"i" + g: ("input." + g, None) for g in "ifgo"},
     **{"h" + g: ("hidden." + g, None) for g in "ifgo"}})
+_SIMPLE_CELL = Family(fixed={"i": ("input", None), "h": ("hidden", None)})
+_ATTENTION = Family(fixed={
+    name: (name, None)
+    for name in ("q_linear", "k_linear", "v_linear", "joint_linear")})
+_BLOCK = Family(fixed={"MultiHeadAttention_0": ("attention", _ATTENTION)},
+                indexed={"LayerNorm": ("norms", None),
+                         "Dense": ("dense", None)})
+_TRANSFORMER = Family(indexed={"Block": ("blocks", _BLOCK)})
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
@@ -75,6 +89,9 @@ def _network(backbone, dense_chain):
     return Family(
         fixed={"breath_block": ("breath_block", backbone),
                "OptimizedLSTMCell_0": ("lstm", _LSTM_CELL),
+               "OptimizedLSTMCell_1": ("sequence_lstm", _LSTM_CELL),
+               "SimpleCell_0": ("rnn", _SIMPLE_CELL),
+               "Transformer_0": ("transformer", _TRANSFORMER),
                "add_on_layers": ("add_on_layers", _ADD_ON),
                "last_layer": ("last_layer", None), **dense},
         indexed={"Dense": ("layers", None)} if dense_chain else {})
@@ -87,8 +104,8 @@ def _root_family(paths):
                  for n in names)
     backbone = _RESNET if resnet else _DENSENET
     top = {path[0] for path in paths}
-    if not top & {"breath_block", "OptimizedLSTMCell_0", "Dense_0",
-                  "prototype_vectors"}:
+    if not top & {"breath_block", "OptimizedLSTMCell_0", "SimpleCell_0",
+                  "Dense_0", "Transformer_0", "prototype_vectors"}:
         return backbone  # a bare backbone tree
     return _network(backbone, "Dense_1" in top)
 

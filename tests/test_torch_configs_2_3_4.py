@@ -189,12 +189,13 @@ OPTIONS = {"sgd": dict(learning_rate=0.001, weight_decay=0.0001,
            "adam": dict(learning_rate=0.001)}
 
 
-def _batches(s, b, target_mode, seed=4):
+def _batches(s, b, target_mode, seed=4, channels=1):
     """Three raw batches; the last row of each is a pad row (mask 0)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(3):
-        data = (rng.normal(size=(b, s, 1, L)) * 20 + 3).astype(np.float32)
+        data = (rng.normal(size=(b, s, channels, L)) * 20 + 3).astype(
+            np.float32)
         if target_mode == "regression":
             target = (rng.normal(size=(b, 9)) * 2 + 1).astype(np.float32)
         else:
@@ -208,11 +209,20 @@ def _batches(s, b, target_mode, seed=4):
 def assert_three_train_steps_match_jax(name):
     """Three steps of config ``name`` from the same params in both
     packages: losses within 1e-4, every param within 1e-5 after each."""
-    jmodel, model, s, b, optimizer, target_mode = CONFIGS[name]()
+    assert_train_steps_match_jax(*CONFIGS[name]())
+
+
+def assert_train_steps_match_jax(jmodel, model, s, b, optimizer,
+                                 target_mode, steps=3, loss_atol=1e-4,
+                                 channels=1):
+    """``steps`` train steps of ``jmodel`` and its port ``model`` over (b,
+    s, channels, L) batches from the same params: losses within
+    ``loss_atol``, every param within 1e-5 after each."""
     loss_name = "mse" if target_mode == "regression" else "bce_with_logits"
     opts = OPTIONS[optimizer]
     tx = jsteps.make_optimizer(optimizer, **opts)
-    params = random_params(jmodel, 5, jnp.zeros((b, s, 1, L)), None, True)
+    params = random_params(jmodel, 5, jnp.zeros((b, s, channels, L)), None,
+                           True)
     jstate = jsteps.TrainState(params=params, opt_state=tx.init(params),
                                rng=jax.random.PRNGKey(0),
                                step=jnp.zeros((), jnp.int32))
@@ -229,12 +239,14 @@ def assert_three_train_steps_match_jax(name):
         getattr(losses, loss_name),
         transform=lambda d: pipeline.transform_batch(d, _t(MU), _t(STD)),
         dropout_active=False, target_mode=target_mode)
-    for step, (data, target, mask) in enumerate(_batches(s, b, target_mode)):
+    batches = _batches(s, b, target_mode, channels=channels)[:steps]
+    for step, (data, target, mask) in enumerate(batches):
         jstate, jloss = jtrain(jstate, {"data": jnp.asarray(data),
                                         "target": jnp.asarray(target)},
                                jnp.asarray(mask))
         tloss = ttrain(state, _t(data), _t(target), _t(mask))
-        assert abs(float(tloss) - float(jloss)) <= 1e-4, (step, tloss, jloss)
+        assert abs(float(tloss) - float(jloss)) <= loss_atol, (
+            step, tloss, jloss)
         want = transplant(jax.tree_util.tree_map(np.asarray, jstate.params))
         for k, v in model.state_dict().items():
             np.testing.assert_allclose(v.numpy(), want[k].numpy(), atol=1e-5,
@@ -322,10 +334,11 @@ def _no_dropout(make_step):
     return wrapped
 
 
-def _runs(cohort, tmp_path, name):
+def _runs(cohort, tmp_path, name, over=None):
     """The JAX trainer's results and the port's, each fold of both from
     the same params: numpy draws in the shapes of the JAX trainer's model
-    (its eager ``model.init`` would take half the run)."""
+    (its eager ``model.init`` would take half the run).  ``over``: the
+    run's options, RUNS[name] by default."""
     inits = []
 
     def numpy_init(model, tx, sample, rng, has_metadata=False,
@@ -340,7 +353,7 @@ def _runs(cohort, tmp_path, name):
             rng=jsteps.make_state_rng(rng, rng_impl),
             step=jnp.zeros((), jnp.int32))
 
-    over = RUNS[name]
+    over = RUNS[name] if over is None else over
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jloop, "create_train_state", numpy_init)
         mp.setattr(jloop, "make_train_step",
@@ -378,13 +391,13 @@ def _hour_rows(rows):
                    r["pred"], r["epoch"], r["fold"]) for r in rows)
 
 
-def assert_classifier_run_matches_jax(cohort, tmp_path, name):
+def assert_classifier_run_matches_jax(cohort, tmp_path, name, over=None):
     """Config ``name``'s 2-fold run: per-step losses within 1e-4; votes,
     patient rows and AUCs equal; the predictions by hour equal as sets of
     rows (a per-breath head gives each window S predictions, which the
     JAX package orders by an unstable sort of the window index and the
     port by a stable one).  Returns the port's trainer."""
-    jres, trainer = _runs(cohort, tmp_path, name)
+    jres, trainer = _runs(cohort, tmp_path, name, over)
     port = trainer.results
     _assert_losses_close(port, jres, atol=1e-4)
     want = jres.results.to_dict(orient="records")
@@ -454,8 +467,8 @@ def test_network_without_backbone_trains(synthetic_cohort, tmp_path):
 @pytest.mark.parametrize("over", [
     dict(network="protopnet_2d"),
     dict(network="siamese_cnn_lstm", parallel_folds=True),
-    dict(network="cnn_transformer"), dict(network="lstm_only"),
-    dict(network="cnn_to_nested_lstm"),
+    dict(network="siamese_cnn_transformer"), dict(network="autoencoder"),
+    dict(network="cnn_linear_2d"),
 ])
 def test_unported_paths_raise(synthetic_cohort, tmp_path, over):
     with pytest.raises(NotImplementedError, match="not ported"):

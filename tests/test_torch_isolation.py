@@ -72,7 +72,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.explain.cam_analytics",
             "deepards_tpu_torch.explain.explainer_comparison",
             "deepards_tpu_torch.cli.patient_gradcam",
-            "deepards_tpu_torch.cli.protopnet_analysis"} <= set(
+            "deepards_tpu_torch.cli.protopnet_analysis",
+            "deepards_tpu_torch.models.heads",
+            "deepards_tpu_torch.models.transformer",
+            "deepards_tpu_torch.models.nested",
+            "deepards_tpu_torch.train.nested_trainer"} <= set(
                 report["modules"])
     forbidden = [
         name for name in report["loaded"]
@@ -193,6 +197,60 @@ def test_configs_2_3_4_train_without_pandas_sklearn_or_yaml(tmp_path):
     assert unshuffled[0] > 0 and unshuffled[1] == 0
     assert parallel[0] > 0 and parallel[0] == parallel[1]
     assert (tmp_path / "models" / "config3.scaling.json").exists()
+
+
+_SEQUENCE_WITHOUT = r"""
+import json, sys
+for blocked in ("pandas", "sklearn", "yaml", "jax", "deepards_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from deepards_tpu_torch.cli.predict import main as predict
+from deepards_tpu_torch.cli.train import main
+from deepards_tpu_torch.data.synthetic import generate_cohort
+
+work = sys.argv[1]
+cohort = generate_cohort(work + "/cohort", n_patients=4,
+                         n_breaths_per_patient=80, seed=3)
+small = ["--data-path", work + "/cohort", "--cohort-file", cohort,
+         "--epochs", "1", "--device", "cpu", "--results-dir",
+         work + "/results", "--initial-planes", "8", "--base-network",
+         "resnet18", "--n-sub-batches", "4", "--batch-size", "8",
+         "--kfolds", "2", "--only-fold", "0"]
+report = {}
+for name in chip_smoke.SEQUENCE_FLAGS:
+    trainer = main(chip_smoke.CONFIG_FLAGS[name] + small + [
+        "--save-model", name + ".pt", "--saved-models-dir",
+        work + "/models"])
+    report[name] = [len(trainer.results.get_meter(m, 0).values)
+                    for m in ("loss", "test_auc")]
+rows, votes = predict(["--checkpoint",
+                       work + "/models/cnn_to_nested_lstm-fold0",
+                       "-o", work + "/p.csv", "--votes-output",
+                       work + "/v.json"]
+                      + chip_smoke.CONFIG_FLAGS["cnn_to_nested_lstm"]
+                      + small)
+report["predict_rows"] = len(rows)
+print(json.dumps(report))
+"""
+
+
+def test_sequence_networks_train_without_pandas_sklearn_or_yaml(tmp_path):
+    """One epoch of fold 0 of every network of chip_smoke.py's sequence
+    phase from its flags (narrowed: resnet18 at 8 initial planes, S = 4)
+    and ``cli.predict`` on a nested network's checkpoint, with pandas,
+    scikit-learn, PyYAML, JAX and deepards_tpu blocked."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SEQUENCE_WITHOUT, str(tmp_path)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report.pop("predict_rows") > 0
+    assert len(report) == 11
+    for name, (losses, aucs) in report.items():
+        assert losses > 0 and aucs == 1, name
 
 
 _CONFIGS_5_7_WITHOUT = r"""

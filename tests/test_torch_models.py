@@ -187,4 +187,4 @@ def test_registry_builds_seeded_full_width_cnn_linear():
     with pytest.raises(ValueError, match="unknown network"):
         get_network_spec("no_such_network")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_network_spec("cnn_transformer")
+        get_network_spec("siamese_cnn_transformer")

@@ -327,7 +327,7 @@ def test_unported_options_raise(synthetic_cohort, tmp_path, option):
     dict(network="cnn_linear_2d", parallel_folds=True),
     dict(network="protopnet_2d"),
     dict(network="siamese_cnn_linear"), dict(network="retinanet_2d"),
-    dict(network="cnn_to_nested_lstm"),
+    dict(network="siamese_pretrained"),
 ])
 def test_other_trainers_raise(synthetic_cohort, tmp_path, over):
     with pytest.raises(NotImplementedError):
