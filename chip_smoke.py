@@ -62,13 +62,20 @@ eager ones, a
 served and a predicted checkpoint to the trainer, a nested patient's
 padded logits to its own bucket's, times the bf16 graphed step, and runs
 one real-size nested step (a 1,440-window patient in bucket 2,048); it
-prints one line a network.  Every other phase prints one JSON line, and
-``phase_seconds`` each phase's seconds; any failure exits nonzero.  The
-last
-two lines are the card's ``nvidia-smi`` name and power limit and
+prints one line a network.  Then ``two_d`` takes each 2D network
+(``TWO_D_FLAGS``: cnn_linear_2d, its FFT variant, cnn_linear_2x1d with
+kernel 11 and its transforms, protopnet_2d, retinanet_2d) through the CLI
+over 224x224 breath images, each step a graph replay on the card, holds 3
+full-width steps to the CPU (a ProtoPNet stage 1, and its push), graphed
+steps to eager ones and a cnn_linear_2d checkpoint's ``cli.predict`` to
+the trainer's eval, and times the bf16 graphed step and a host epoch
+with its share in ``gather``; one line a network.  Every other phase
+prints one JSON line, and ``phase_seconds`` each phase's seconds; any
+failure exits nonzero.  The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints
 no result.
 """
+import contextlib
 import copy
 import io
 import json
@@ -164,13 +171,43 @@ SEQUENCE_FLAGS = {
 # config 5's schedule cut to pass through every stage and two pushes
 CONFIG5_CUT = ["--epochs", "3", "--n-warm-epochs", "1", "-pse", "2",
                "--push-every-n", "1", "--n-push-iters", "1"]
+# the 2D networks (the ``two_d`` phase) as their experiment files
+# (deepards_tpu/config/experiment_files/generated/
+# unpadded_centered_nb20_cnn_linear_2d_bs2.yml, ..._2d_bs2_fft_baseline.yml,
+# ..._2x1d_bs2_all_transforms.yml with block_kernel_size 11,
+# protopnet2d_unpadded_centered.yml,
+# unpadded_centered_nb20_retinanet_bs2_bbox_baseline.yml)
+TWO_D_BASE = [
+    "--clip-grad", "--clip-val", "0.01", "--dataset-type",
+    "unpadded_centered_sequences", "--kfolds", "5", "--n-sub-batches", "20",
+    "--oversample-minority"]
+TWO_D_FLAGS = {
+    "cnn_linear_2d": TWO_D_BASE + [
+        "--batch-size", "2", "--epochs", "10", "--network", "cnn_linear_2d"],
+    "cnn_linear_2d_fft": TWO_D_BASE + [
+        "--batch-size", "2", "--epochs", "10", "--network", "cnn_linear_2d",
+        "--with-fft"],
+    "cnn_linear_2x1d": TWO_D_BASE + [
+        "--batch-size", "2", "--epochs", "10", "--network", "cnn_linear_2x1d",
+        "--two-dim-transforms", "win_slice", "win_warp", "row_shuffle",
+        "horiz_flip", "--block-kernel-size", "11"],
+    "protopnet_2d": TWO_D_BASE + [
+        "--batch-size", "16", "--epochs", "10", "--network", "protopnet_2d",
+        "--n-prototypes", "6", "--two-dim-transforms", "mag_warp",
+        "row_shuffle", "win_warp"],
+    "retinanet_2d": TWO_D_BASE + [
+        "--batch-size", "2", "--epochs", "20", "--network", "retinanet_2d"],
+}
+# protopnet_2d's schedule cut to every stage and one push
+PPNET_2D_CUT = ["--n-warm-epochs", "1", "-pse", "2", "--push-every-n", "1",
+                "--n-push-iters", "1"]
 CONFIG_FLAGS = {"config1": CONFIG1_FLAGS, "config2": CONFIG2_FLAGS,
                 "config3": CONFIG3_FLAGS, "config4": CONFIG4_FLAGS,
                 # config 4's stateful fold, config 1's folds trained at once
                 # (the JAX benchmark's config 7), config 5
                 "config4_unshuffled": CONFIG4_FLAGS + ["--unshuffled"],
                 "config7": CONFIG1_FLAGS + ["--parallel-folds"],
-                "config5": CONFIG5_FLAGS, **SEQUENCE_FLAGS}
+                "config5": CONFIG5_FLAGS, **SEQUENCE_FLAGS, **TWO_D_FLAGS}
 
 # published H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -717,6 +754,7 @@ BY_GRADIENT = {
     # the LSTM-only networks have no conv
     **{name: () if name in LSTM_ONLY else ("breath_block.conv0.",)
        for name in SEQUENCE_FLAGS},
+    **{name: ("breath_block.conv0.",) for name in TWO_D_FLAGS},
 }
 # Networks that select by sorting: each window's feature at the lower
 # median (cnn_linear_compr_to_rf), or the mean of the middle two (the
@@ -849,12 +887,12 @@ def config_cohort(workdir, conf):
 
 
 def train_config(workdir, device, name="config1", epochs=TRAIN_EPOCHS,
-                 extra=()):
+                 extra=(), folds=None):
     """Config ``name`` through ``deepards_tpu_torch.cli.train.main`` on a
     seeded synthetic cohort, ``epochs`` epochs of every fold (``extra``
-    flags after the config's), with its checkpoints and results checked:
-    a classifier's AUC meters and patient records, a regressor's test
-    MAE, MSE and r2."""
+    flags after the config's; ``folds``: the folds they train, default
+    all), with its checkpoints and results checked: a classifier's AUC
+    meters and patient records, a regressor's test MAE, MSE and r2."""
     from deepards_tpu_torch.cli.train import main as train_main
     from deepards_tpu_torch.data.dataset import ARDSRawDataset
     from deepards_tpu_torch.train import checkpoint as ckpt
@@ -878,8 +916,9 @@ def train_config(workdir, device, name="config1", epochs=TRAIN_EPOCHS,
     classifier = trainer.spec.kind == "classifier"
     meters = ("test_auc",) if classifier else ("test_mae", "test_mse",
                                                "test_r2")
+    trained = range(kfolds or 1) if folds is None else folds
     folds = {}
-    for fold in range(kfolds or 1):
+    for fold in trained:
         losses = res.get_meter("loss", fold).values
         tested = {m: res.reporting.meters.get("{}_fold_{}".format(m, fold))
                   for m in meters}
@@ -1574,6 +1613,9 @@ def graph_vs_eager(workdir, device="cuda", name="config1"):
     if get_network_spec(conf.network).super_batch:
         run = nested_graph_run(workdir, device, name, rng)
         steps = len(NESTED_GRAPH_PATIENTS)
+    elif name in TWO_D_FLAGS:
+        run = two_d_graph_run(workdir, device, name)
+        steps = GRAPH_STEPS
     else:
         run = standard_graph_run(workdir, device, name, rng)
         steps = GRAPH_STEPS
@@ -2494,8 +2536,9 @@ def ppnet_trainer(device, *flags):
     return trainer
 
 
-def ppnet_card_vs_cpu(device):
-    """One full-width step of each stage of config 5 (batch 16, one pad
+def ppnet_card_vs_cpu(device, name="config5"):
+    """One full-width step of each stage of config 5, or of protopnet_2d
+    over normalized images (batch 16, one pad
     row, dropout off) on the device and on the CPU from the same params,
     in float32 and float64: the loss within 1e-4, the stage's params
     within 1e-5 in float32 (the first conv held by float64) and
@@ -2514,10 +2557,15 @@ def ppnet_card_vs_cpu(device):
     )
     from deepards_tpu_torch.train.steps import TrainState, make_optimizer
 
-    trainer = ppnet_trainer("cpu")
+    two_d = name in TWO_D_FLAGS
+    trainer = two_d_trainer(name, "cpu") if two_d else ppnet_trainer("cpu")
     conf = trainer.conf
     rng = np.random.default_rng(SEED + 14)
-    raw = make_windows(rng, conf.batch_size, conf.n_sub_batches)
+    if two_d:
+        raw = rng.normal(size=(conf.batch_size, trainer.in_channels,
+                               IMAGE, IMAGE)).astype(np.float32)
+    else:
+        raw = make_windows(rng, conf.batch_size, conf.n_sub_batches)
     mu, std = np.float32([raw.mean()]), np.float32([raw.std()])
     targets = np.eye(2, dtype=np.float32)[rng.integers(0, 2,
                                                        conf.batch_size)]
@@ -2543,9 +2591,11 @@ def ppnet_card_vs_cpu(device):
         ident = torch.as_tensor(model.class_identity_windows(), device=dev,
                                 dtype=dtype)
         steps, _ = make_ppnet_steps(
-            model, lambda d: transform_batch(d, mu_d, std_d), ident,
+            model, None if two_d else (
+                lambda d: transform_batch(d, mu_d, std_d)), ident,
             model.max_dist, conf.clust_lambda, conf.sep_lambda,
-            dropout_active=False)
+            dropout_active=False,
+            bn_mask_rows="batch" if two_d else "windows")
         x, t, m = (torch.from_numpy(a).to(dev, dtype)
                    for a in (raw, targets, mask))
         out = steps[stage](state, x, t, m).cpu().double().numpy()
@@ -2561,7 +2611,7 @@ def ppnet_card_vs_cpu(device):
             dev_out, dev_params, _ = run(device, dtype, stage)
             outside = [n for n in init if n not in inside]
             held = [n for n in inside if not (
-                f32 and n.startswith(BY_GRADIENT["config5"]))]
+                f32 and n.startswith(BY_GRADIENT[name]))]
             atol = limit if f32 else STAGE_F64_ATOL
             loss_err = float(np.abs(dev_out - cpu_out).max())
             over = elements_over(dev_params, cpu_params, held, atol)
@@ -2603,27 +2653,38 @@ def ppnet_card_vs_cpu(device):
                                      "planted fault".format(dtype_name,
                                                             stage))
     if failed:
-        raise AssertionError("config5 card vs CPU: " + "; ".join(failed))
+        raise AssertionError("{} card vs CPU: {}".format(
+            name, "; ".join(failed)))
     return fields
 
 
-def push_card_vs_cpu(workdir, device):
+def push_card_vs_cpu(workdir, device, name="config5"):
     """The push over 64 full-width windows of 8 patients (batch 16, the
     last batch padded) on the device and on the CPU from the same params:
     the same winners (window, position) and distances within PUSH_ATOL
     of max(1, distance), the prototype vectors within PUSH_ATOL.  A winner
     may differ only where the two sides' best distances agree so (a tie
     within rounding; counted).  Planted: the vectors of another
-    prototype."""
+    prototype.  protopnet_2d: over the train images of ``two_d_datasets``
+    (10 patients), each side gathering them with the same transforms."""
     import torch
 
+    two_d = name in TWO_D_FLAGS
     rng = np.random.default_rng(SEED + 15)
-    ds = cohort_dataset(workdir, make_windows(rng, 56), [0, 1] * 4, 7)
-    base = ppnet_trainer("cpu").build_model().reset_parameters(
+    if two_d:
+        trainer = two_d_trainer(name, "cpu")
+    else:
+        trainer = ppnet_trainer("cpu")
+        ds = cohort_dataset(workdir, make_windows(rng, 56), [0, 1] * 4, 7)
+    base = trainer.build_model().reset_parameters(
         torch.Generator().manual_seed(SEED + 1)).state_dict()
     sides = {}
     for dev in (device, "cpu"):
-        trainer = ppnet_trainer(dev)
+        if two_d:
+            trainer = two_d_trainer(name, dev)
+            ds, _ = two_d_datasets(trainer, workdir, 10, 5, SEED + 15)
+        else:
+            trainer = ppnet_trainer(dev)
         trainer.push_infos = []
         model = trainer.build_model()
         model.load_state_dict(base)
@@ -2651,7 +2712,8 @@ def push_card_vs_cpu(workdir, device):
                              "prototype's vector")
     if vec_err > PUSH_ATOL:
         failed.append("prototype vectors: {}".format(vec_err))
-    fields = {"windows": 56, "prototypes": len(d_info), "atol": PUSH_ATOL,
+    fields = {"windows": len(ds), "prototypes": len(d_info),
+              "atol": PUSH_ATOL,
               "winners_equal": len(same), "ties_within_atol": ties,
               "max_abs_vectors": vec_err,
               "max_rel_distance": max(abs(a["distance"] - b["distance"])
@@ -3737,6 +3799,510 @@ def phase_explain(workdir, device="cuda", cam_checkpoint=None,
     return launches
 
 
+# -- the 2D breath-image networks ---------------------------------------------
+
+IMAGE = 224  # an image's H and W: 224 rows of 224 samples
+# the timed host epoch: fold 0's train split of 16 patients x 20 images
+# (12 patients, 240 images)
+MEASURE_PATIENTS, MEASURE_IMAGES_EACH = 16, 20
+
+
+def two_d_trainer(name, device, *flags):
+    """The trainer of 2D network ``name``'s flags, its backbone named and
+    its input channels set by ``image_options`` as for its images, ready
+    to build models without a cohort."""
+    from deepards_tpu_torch.train.loop import make_trainer
+
+    conf = config_conf(name, "--device", device, *flags)
+    trainer = make_trainer(conf, verbose=False)
+    trainer.n_sub_batches = conf.n_sub_batches
+    trainer.image_options()
+    return trainer
+
+
+def two_d_datasets(trainer, workdir, n_patients, images_each, seed):
+    """(train, test) ``ImgARDSDataset``s of ``trainer``'s options (FFT
+    channels, transforms, patho mix, bbox splices) over flow-like windows
+    of ``n_patients`` patients (classes alternating), ``images_each``
+    images a patient (a multiple of 5: 56 windows of 20 breaths), fold 0
+    of 5, as ``trainer.get_base_datasets`` makes them from a cohort."""
+    from deepards_tpu_torch.data.dataset import ARDSRawDataset
+
+    rng = np.random.default_rng(seed)
+    n_windows = images_each * IMAGE // S
+    raw = cohort_dataset(workdir, make_windows(rng, n_patients * n_windows),
+                         [0, 1] * (n_patients // 2), n_windows,
+                         total_kfolds=5)
+    raw.kfold_num = 0
+    raw.set_kfold_indexes_for_fold(0)
+    return trainer.image_datasets(
+        raw, ARDSRawDataset.make_test_dataset_if_kfold(raw))
+
+
+def two_d_batch(trainer, batch):
+    """A gathered image batch as the trainer's runner reads it: padded
+    to the batch size, a detector's band boxes as row labels."""
+    from deepards_tpu_torch.models.detection2d import row_labels_from_boxes
+
+    if trainer.spec.kind == "detector":
+        batch = {"data": batch["data"], "target": row_labels_from_boxes(
+            batch["boxes"], batch["labels"], IMAGE)}
+    return trainer.device_batch(batch, trainer.conf.batch_size)
+
+
+def two_d_runners(trainer, state, ds, dropout=True, graphed=None):
+    """{stage or "train": StepRunner} of the trainer's steps over ``ds``'s
+    images (one a ProtoPNet stage, the eval with the last); CUDA-graph
+    replays on the card unless ``graphed`` says otherwise."""
+    from deepards_tpu_torch.train.detector_trainer import make_detector_steps
+    from deepards_tpu_torch.train.steps import make_train_step
+
+    conf = trainer.conf
+    if graphed is None:
+        graphed = trainer.device.type == "cuda"
+    if trainer.spec.trainer == "protopnet":
+        return trainer.make_runners(state, ds, dropout=dropout,
+                                    graphed=graphed)
+    if trainer.spec.kind == "detector":
+        steps = make_detector_steps(conf.fl_gamma, conf.fl_alpha,
+                                    trainer.compute_dtype)
+    else:
+        options = trainer.step_options(ds)
+        options["eval_dropout_active"] &= dropout
+        steps = make_train_step(trainer.loss_fn, dropout_active=dropout,
+                                **options)
+    return {"train": trainer.make_runner(state, ds, *steps,
+                                         graphed=graphed)}
+
+
+def two_d_card_vs_cpu(device, name):
+    """Three steps of 2D network ``name`` at full width and its batch
+    (normalized 224x224 images; one pad row in a batch of more than 2),
+    dropout off, on the device and on the CPU from the same params and
+    batches, in float32 and float64: losses within 1e-4 and every param
+    element within 1e-5 after each step, but in float32 the first conv,
+    held by its float32 gradient on the card against the CPU's float64
+    one within 2e-2 of the largest element (the controls, a zero and the
+    next batch's gradient, must exceed it), as ``TRAIN_STEP_ATOL`` says.
+    The float32 check must pass the CPU against itself with the batch's
+    rows permuted, and each check must fail a planted fault: the most
+    moved held tensor left at its init."""
+    import torch
+
+    from deepards_tpu_torch.models.detection2d import row_labels_from_boxes
+    from deepards_tpu_torch.train.detector_trainer import make_detector_steps
+    from deepards_tpu_torch.train.steps import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    trainer = two_d_trainer(name, "cpu")
+    conf, batch = trainer.conf, trainer.conf.batch_size
+    detector = trainer.spec.kind == "detector"
+    rng = np.random.default_rng(SEED + 30)
+    images = rng.normal(size=(3, batch, trainer.in_channels, IMAGE,
+                              IMAGE)).astype(np.float32)
+    if detector:
+        starts = rng.integers(20, 120, size=3 * batch)
+        boxes = np.array([[[0, 0, IMAGE, a], [0, a, IMAGE, a + 60],
+                           [0, a + 60, IMAGE, IMAGE]] for a in starts])
+        own = rng.integers(0, 2, size=3 * batch)
+        targets = row_labels_from_boxes(
+            boxes, np.stack([own, 1 - own, own], axis=1), IMAGE).reshape(
+                3, batch, IMAGE, 2)
+    else:
+        targets = np.eye(2, dtype=np.float32)[
+            rng.integers(0, 2, size=(3, batch))]
+    mask = np.ones(batch, np.float32)
+    if batch > 2:
+        mask[-1] = 0.0
+    permuted = np.append(rng.permutation(batch - 1), batch - 1) \
+        if batch > 2 else rng.permutation(batch)
+    model = trainer.build_model().reset_parameters(
+        torch.Generator().manual_seed(SEED))
+    init = model.state_dict()
+    names = [n for n, _ in model.named_parameters()]
+    by_gradient = [n for n in names if n.startswith(BY_GRADIENT[name])]
+    limit = TRAIN_STEP_ATOL["params"]
+    if detector:
+        step, _ = make_detector_steps(conf.fl_gamma, conf.fl_alpha)
+    else:
+        step, _ = make_train_step(trainer.loss_fn, dropout_active=False,
+                                  target_mode=trainer.spec.target_mode,
+                                  bn_mask_rows="batch")
+
+    def build(dev, dtype):
+        model = trainer.build_model()
+        model.load_state_dict(init)
+        return model.to(device=dev, dtype=dtype)
+
+    def batch_of(k, dev, dtype, rows=slice(None)):
+        return [torch.from_numpy(a).to(device=dev, dtype=dtype)
+                for a in (images[k][rows], targets[k][rows], mask[rows])]
+
+    def run(dev, dtype, rows=slice(None)):
+        model = build(dev, dtype)
+        state = TrainState(model, make_optimizer(
+            model.parameters(), conf.optimizer,
+            learning_rate=conf.learning_rate, weight_decay=conf.weight_decay,
+            clip_grad=bool(conf.get("clip_grad")), clip_val=conf.clip_val),
+            torch.Generator(device=dev))
+        losses, params = [], []
+        for k in range(3):
+            losses.append(float(step(state, *batch_of(k, dev, dtype, rows))))
+            params.append(snapshot(model.state_dict()))
+        return losses, params
+
+    def gradients(dev, dtype):
+        out = []
+        for k in range(3):
+            model = build(dev, dtype)
+            state = TrainState(model, GradientsOnly(model),
+                               torch.Generator(device=dev))
+            step(state, *batch_of(k, dev, dtype))
+            out.append({n: p.grad.detach().to("cpu", torch.float64)
+                        for n, p in model.named_parameters()
+                        if n in by_gradient})
+        return out
+
+    fields = {"atol": TRAIN_STEP_ATOL, "batch": batch, "pad_rows":
+              int((mask == 0).sum()), "by_gradient": {}}
+    failed = []
+    exact = gradients("cpu", torch.float64)
+    card = gradients(device, torch.float32)
+    for n in by_gradient:
+        scale = max(float(g[n].abs().max()) for g in exact)
+        check = fields["by_gradient"][n] = {
+            "scale": scale,
+            "grad_err_device": [float((card[k][n] - exact[k][n]).abs().max())
+                                / scale for k in range(3)],
+            "controls": [float(g[n].abs().max()) / scale for g in exact]
+            + [float((exact[k][n] - exact[(k + 1) % 3][n]).abs().max())
+               / scale for k in range(3)]}
+        if min(check["controls"]) <= TRAIN_STEP_ATOL["grad"]:
+            raise AssertionError("{}'s gradient limit would pass a zero or "
+                                 "another batch's gradient".format(n))
+        if max(check["grad_err_device"]) > TRAIN_STEP_ATOL["grad"]:
+            failed.append("{} gradient {}".format(
+                n, check["grad_err_device"]))
+    for dtype_name, dtype in (("float64", torch.float64),
+                              ("float32", torch.float32)):
+        f32 = dtype == torch.float32
+        cpu_losses, cpu_steps = run("cpu", dtype)
+        dev_losses, dev_steps = run(device, dtype)
+        held = [n for n in cpu_steps[0] if not (f32 and n in by_gradient)]
+        loss_err = float(np.max(np.abs(np.subtract(dev_losses, cpu_losses))))
+        over = [elements_over(d, c, held, limit)
+                for d, c in zip(dev_steps, cpu_steps)]
+        record = fields[dtype_name] = {
+            "losses_device": dev_losses, "losses_cpu": cpu_losses,
+            "max_abs_loss": loss_err,
+            "max_abs_params_by_step": [max(float((d[n] - c[n]).abs().max())
+                                           for n in held)
+                                       for d, c in zip(dev_steps, cpu_steps)],
+            "over_atol_by_step": over}
+        if loss_err > TRAIN_STEP_ATOL["loss"] or any(over):
+            failed.append("{}: loss {}, over {}".format(dtype_name, loss_err,
+                                                       over))
+        moved = {n: float((cpu_steps[-1][n] - init[n].double()).abs().max())
+                 for n in held}
+        fault = max(moved, key=moved.get)
+        planted = dict(dev_steps[-1])
+        planted[fault] = init[fault].double()
+        record["planted"] = {"fault": fault + " not updated", "over_atol":
+                             sum(elements_over(planted, cpu_steps[-1], held,
+                                               limit).values())}
+        if not record["planted"]["over_atol"]:
+            raise AssertionError("the {} check would pass {} left at its "
+                                 "init".format(dtype_name, fault))
+        if f32:
+            perm_losses, perm_steps = run("cpu", dtype, rows=permuted)
+            spread = [elements_over(p, c, held, limit)
+                      for p, c in zip(perm_steps, cpu_steps)]
+            record["cpu_rows_permuted_over_atol"] = spread
+            if any(spread) or np.max(np.abs(np.subtract(
+                    perm_losses, cpu_losses))) > TRAIN_STEP_ATOL["loss"]:
+                raise AssertionError("the float32 check fails the CPU "
+                                     "against itself: {}".format(spread))
+    if failed:
+        emit("card_vs_cpu_failed", network=name, **fields)
+        raise AssertionError("{} card vs CPU: {}".format(
+            name, "; ".join(failed)))
+    return fields
+
+
+def two_d_graph_run(workdir, device, name):
+    """``run(graphs, dtype, dropout)`` for ``graph_vs_eager``: GRAPH_STEPS
+    train steps of 2D network ``name`` from fold 0's state over batches
+    gathered once from ``two_d_datasets``' train images (the last with
+    pad rows), each ProtoPNet stage in turn, then an eval pass over the
+    same batches; (losses, state, eval outputs)."""
+    import torch
+
+    from deepards_tpu_torch.train.protopnet_trainer import STAGES
+
+    trainer = two_d_trainer(name, "cpu")
+    batch = trainer.conf.batch_size
+    n = GRAPH_STEPS * batch
+    # 10 patients (5 a class for 5 folds), 8 of them in fold 0's train
+    # split: at least n images
+    ds, _ = two_d_datasets(trainer, workdir, 10, 5 * -(-n // 40), SEED + 32)
+    idx = ds.current_indices()[:n]
+    host = [two_d_batch(trainer, ds.gather(idx[k * batch:(k + 1) * batch]))
+            for k in range(GRAPH_STEPS)]
+    host[-1]["mask"][-1] = 0.0  # a pad row in the last batch
+    stages = STAGES if trainer.spec.trainer == "protopnet" else ("train",)
+
+    def run(graphs, dtype, dropout):
+        trainer = two_d_trainer(name, device, "--compute-dtype", dtype)
+        state = trainer.new_state(0)
+        runners = two_d_runners(trainer, state, ds, dropout,
+                                graphs and trainer.device.type == "cuda")
+        losses, outs = [], []
+        for stage in stages:
+            for b in host:
+                for key, value in b.items():
+                    runners[stage].inputs[key].copy_(value.to(trainer.device))
+                losses.append(runners[stage].train().clone())
+        evaluator = runners[stages[-1]]
+        for b in host:
+            for key, value in b.items():
+                evaluator.inputs[key].copy_(value.to(trainer.device))
+            outs.append(evaluator.eval()[1].clone())
+        return torch.stack(losses), state, torch.stack(outs)
+
+    return run
+
+
+def two_d_numbers(workdir, device, name):
+    """The bf16 graphed step of 2D network ``name`` at full width and its
+    batch (time, device time, kernels, idle share; the eval step too), the
+    runner's build seconds and the peak memory above what was allocated
+    before it, then one host epoch over fold 0's train split of
+    MEASURE_PATIENTS x MEASURE_IMAGES_EACH images (the network's
+    transforms, FFT channels, patho mix or splices): images/s, and the
+    seconds spent in ``gather`` (normalization, filter, transforms; on the
+    prefetch thread, beside the card's work) and their share of the
+    epoch."""
+    import torch
+
+    trainer = two_d_trainer(name, device)
+    ds, _ = two_d_datasets(trainer, workdir, MEASURE_PATIENTS,
+                           MEASURE_IMAGES_EACH, SEED + 33)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = trainer.new_state(0)
+    runners = two_d_runners(trainer, state, ds)
+    torch.cuda.synchronize()
+    build_seconds = time.perf_counter() - t0
+    batch = trainer.conf.batch_size
+    first = two_d_batch(trainer, ds.gather(ds.current_indices()[:batch]))
+    ppnet = trainer.spec.trainer == "protopnet"
+    for runner in runners.values():
+        for key, value in first.items():
+            runner.inputs[key].copy_(value)
+    out = {"batch": batch, "compute_dtype": "bfloat16",
+           "runner_build_seconds": build_seconds}
+    for stage, runner in runners.items():
+        out[stage if ppnet else "train"] = step_profile(runner.train)
+    out["eval"] = step_profile(runners["last" if ppnet else "train"].eval)
+    gather, spent = ds.gather, [0.0]
+
+    def timed_gather(*args, **kwargs):
+        t = time.perf_counter()
+        got = gather(*args, **kwargs)
+        spent[0] += time.perf_counter() - t
+        return got
+
+    ds.gather = timed_gather
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if ppnet:
+        losses = trainer._host_ppnet_steps(runners["joint"], ds)
+    elif trainer.spec.kind == "detector":
+        losses = trainer.run_detector_train_epoch(runners["train"], ds)
+    else:
+        trainer.run_train_epoch(runners["train"], ds, 0, 1)
+        losses = torch.tensor(trainer.results.get_meter("loss", 0).values)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    images = len(losses) * batch
+    if not torch.isfinite(losses).all():
+        raise AssertionError("{} host epoch: losses {}".format(name, losses))
+    out.update({
+        "epoch_steps": len(losses), "epoch_images": images,
+        "epoch_seconds": seconds, "images_per_s": images / seconds,
+        "gather_seconds": spent[0], "gather_share": spent[0] / seconds,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated() - baseline,
+        "memory_allocated_before_bytes": baseline})
+    step = out["joint" if ppnet else "train"]
+    print("numbers {}: {} ms a step, {} ms on the device, idle {}, {} "
+          "images/s, gather share {}".format(
+              name, step["ms"], step["device_ms"], step["device_idle_share"],
+              out["images_per_s"], out["gather_share"]), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def runner_log(log):
+    """Append (graphed, device) of every ``StepRunner`` built in the scope
+    to ``log``."""
+    from deepards_tpu_torch.train.steps import StepRunner
+
+    init = StepRunner.__init__
+
+    def logged(self, state, *args, **kwargs):
+        init(self, state, *args, **kwargs)
+        log.append((self.graphs is not None,
+                    next(state.model.parameters()).device.type))
+
+    StepRunner.__init__ = logged
+    try:
+        yield log
+    finally:
+        StepRunner.__init__ = init
+
+
+def phase_two_d(workdir, device="cuda"):
+    """Each 2D network (TWO_D_FLAGS) on the device, its DTW launches
+    counted from 0 just before it and read just after: one JSON line a
+    network.  Returns {network: launches}."""
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+
+    launches, failed = {}, []
+    for name in TWO_D_FLAGS:
+        dtw_ops.launches = 0
+        fields, failures = two_d_path(workdir, name, device)
+        launches[name] = dtw_ops.launches
+        emit("two_d", network=name, dtw_launches=launches[name], **fields)
+        failed += failures
+    if failed:
+        raise AssertionError("two_d: " + "; ".join(failed))
+    return launches
+
+
+def two_d_path(workdir, name, device="cuda"):
+    """2D network ``name`` trained through the CLI (cnn_linear_2d: every
+    fold, 2 epochs; its FFT variant every fold, 1 epoch; the others fold
+    0: the 2x1d 1 epoch, protopnet_2d every stage and one push, the
+    detector 2 epochs), every step of it a graph replay on the card;
+    cnn_linear_2d's fold-0 checkpoint through ``cli.predict`` against the
+    trainer's eval; 3 full-width steps held against the CPU (a ProtoPNet
+    stage 1, and its push); graphed steps held to eager ones; on the card
+    the numbers.  Returns (fields, failures)."""
+    seconds = {}
+
+    def timed(stage, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[stage] = time.perf_counter() - t0
+        return out
+
+    cut = {"cnn_linear_2d": (2, ()), "cnn_linear_2d_fft": (1, ()),
+           "cnn_linear_2x1d": (1, ("--only-fold", "0")),
+           "protopnet_2d": (2, ("--only-fold", "0", *PPNET_2D_CUT)),
+           "retinanet_2d": (2, ("--only-fold", "0"))}[name]
+    epochs, extra = cut
+    log = []
+    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
+              "flags": CONFIG_FLAGS[name], "cut": ["--epochs", str(epochs),
+                                                   *extra]}
+    with runner_log(log):
+        if name == "retinanet_2d":
+            trainer, models_dir, fields["run"] = timed(
+                "train", train_detector, workdir, device, name, epochs,
+                extra)
+        else:
+            trainer, models_dir, fields["run"] = timed(
+                "train", train_config, workdir, device, name, epochs,
+                list(extra), None if "--only-fold" not in extra else (0,))
+    model = trainer.final_state.model
+    fields["run"].update({
+        "base_network": trainer.conf.base_network,
+        "input_channels": model.breath_block.conv0.in_channels,
+        "block_kernel": list(model.breath_block.block_kernel),
+        "runners_graphed": sum(g for g, _ in log), "runners": len(log)})
+    placed = {d for _, d in log} | {p.device.type for p in model.parameters()}
+    if placed != {trainer.device.type} or (
+            device == "cuda" and not all(g for g, _ in log)):
+        raise AssertionError("{}: runners {} on {}, asked for {}".format(
+            name, log, placed, device))
+    if trainer.spec.trainer == "protopnet":
+        fields["pushes"] = len(trainer.push_infos)
+        if len(trainer.push_infos) != 1 or any(
+                i is None for i in trainer.push_infos[0]):
+            raise AssertionError("{} pushes: {}".format(
+                name, trainer.push_infos))
+        fields["card_vs_cpu"] = timed("card_vs_cpu", ppnet_card_vs_cpu,
+                                      device, name)
+        fields["push_card_vs_cpu"] = timed(
+            "push_card_vs_cpu", push_card_vs_cpu, workdir, device, name)
+    elif name != "cnn_linear_2d_fft":
+        fields["card_vs_cpu"] = timed("card_vs_cpu", two_d_card_vs_cpu,
+                                      device, name)
+    if name == "cnn_linear_2d":
+        cohort_dir, cohort = config_cohort(workdir, trainer.conf)
+        fields["predict"] = timed(
+            "predict", predict_vs_eval, CONFIG_FLAGS[name] + [
+                "--data-path", cohort_dir, "--cohort-file", cohort,
+                "--only-fold", "0", "--device", device],
+            os.path.join(models_dir, name + "-fold0"),
+            os.path.join(workdir, name))
+    fields["graph_vs_eager"], failed = timed(
+        "graph_vs_eager", graph_vs_eager, workdir, device, name)
+    failed = ["{} graphed vs eager: {}".format(name, f) for f in failed]
+    if device == "cuda":
+        fields["numbers"] = timed("numbers", two_d_numbers, workdir, device,
+                                  name)
+    fields["seconds"] = seconds
+    fields["phase_seconds"] = sum(seconds.values())
+    print("two_d {}: {} s {}".format(name, fields["phase_seconds"], seconds),
+          flush=True)
+    return fields, failed
+
+
+def train_detector(workdir, device, name, epochs, extra):
+    """Detector ``name`` through ``cli.train`` on the config cohort, the
+    folds of ``extra``: its train losses, the train and test splits' band
+    IoU (in [0, 1]) and the test loss of every epoch, and its
+    checkpoint."""
+    from deepards_tpu_torch.cli.train import main as train_main
+    from deepards_tpu_torch.train import checkpoint as ckpt
+
+    conf = config_conf(name)
+    cohort_dir, cohort = config_cohort(workdir, conf)
+    results_dir = os.path.join(workdir, name + "_results")
+    models_dir = os.path.join(workdir, name + "_models")
+    t0 = time.perf_counter()
+    trainer = train_main(CONFIG_FLAGS[name] + [
+        "--epochs", str(epochs), "--data-path", cohort_dir,
+        "--cohort-file", cohort, "--results-dir", results_dir,
+        "--save-model", name + ".pt", "--saved-models-dir", models_dir,
+        "--device", device] + list(extra))
+    seconds = time.perf_counter() - t0
+    meters = trainer.results.reporting.meters
+    read = {m: meters.get("{}_fold_0".format(m))
+            for m in ("loss", "band_iou", "band_iou_test", "test_loss")}
+    bad = [m for m, meter in read.items() if meter is None or not len(
+        meter.values) or not np.isfinite(meter.values).all()]
+    bad += [m for m in ("band_iou", "band_iou_test", "test_loss")
+            if m not in bad and len(read[m].values) != epochs]
+    bad += [m for m in ("band_iou", "band_iou_test") if m not in bad and
+            not all(0.0 <= v <= 1.0 for v in read[m].values)]
+    path = os.path.join(models_dir, name + "-fold0")
+    if bad or ckpt.load_scaling(path) is None:
+        raise AssertionError("{}: meters {} or checkpoint missing".format(
+            name, bad))
+    return trainer, models_dir, {
+        "seconds": seconds, "steps": len(read["loss"].values),
+        "last_loss": read["loss"].values[-1],
+        **{m: read[m].values for m in ("band_iou", "band_iou_test",
+                                       "test_loss")}}
+
+
 def main():
     import torch
 
@@ -3803,9 +4369,10 @@ def main():
         if not by_path["explain"]:
             raise AssertionError("the explain path never launched the dtw "
                                  "kernel")
-        # the sequence networks: each one's count from 0 just before it
-        # (inside the phase), read just after
+        # the sequence networks, then the 2D networks: each one's count
+        # from 0 just before it (inside the phase), read just after
         by_path.update(timed("sequence", phase_sequence, work))
+        by_path.update(timed("two_d", phase_two_d, work))
     training = {name: by_path[name] for name in CONFIG_FLAGS}
     emit("train_path_kernel_launches", dtw=training)
     if any(training.values()):

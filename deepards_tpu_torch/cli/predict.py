@@ -13,11 +13,13 @@ pred_frac >= 0.5 votes ARDS), the JAX package's columns and fields, with
 ``csv`` and ``json``.
 
 A per-breath head's (cnn_lstm) window probabilities are the mean of its
-S windows' softmax, as in the JAX package.  A nested network is
+S windows' softmax, as in the JAX package.  A 2D network's rows are its
+test images (``deepards_tpu/cli/predict.py:28-45``): no batch pipeline,
+since ``gather`` normalizes, and the row mask over the images.  A nested network is
 predicted as its trainer evaluates it: one patient's windows a super
 batch (the JAX predict feeds it chunks of ``batch_size`` windows, each
 read as one patient's, and fails on the chunk's second row).  A regressor
-is refused: the rows are class probabilities.
+and a detector are refused: the rows are class probabilities.
 
 The dropout masks come from the checkpoint's generator, so the
 probabilities are those of the trainer's eval of the same checkpoint
@@ -84,11 +86,8 @@ def predict(conf, checkpoint_path, batch_size=16, device=None):
 def _window_probs(trainer, state, train_ds, test_ds, batch_size):
     """The test windows in order, in batches of ``batch_size`` through the
     trainer's eval step: (window indices, (n, 2) probabilities)."""
-    _, eval_step = make_train_step(
-        trainer.loss_fn, transform=BatchPipeline(train_ds, trainer.device),
-        compute_dtype=trainer.compute_dtype,
-        eval_dropout_active=not trainer.spec.eval_dropout_off,
-        target_mode=trainer.spec.target_mode)
+    _, eval_step = make_train_step(trainer.loss_fn,
+                                   **trainer.step_options(train_ds))
     idxs = test_ds.current_indices()
     probs = []
     for start in range(0, len(idxs), batch_size):

@@ -70,6 +70,12 @@ class InferenceEngine:
         conf = {"base_network": base_network, "network": network,
                 "bn_scope": bn_scope}
         spec = get_network_spec(network)
+        if spec.two_dim:
+            # requests are windows (S, C, L), as the JAX server's, which
+            # has no image path either
+            raise ValueError(
+                "{} is a 2D network: the server answers requests of "
+                "breath windows, not images".format(network))
         if spec.kind != "classifier":
             raise ValueError(
                 "{} is a {}: the server answers with class probabilities, "

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepards_tpu_torch.models.layers import linear_resize_weights
+
 
 class GradCam:
     """Cams of ``model``, a cnn_linear-family network (``breath_block``
@@ -163,25 +165,6 @@ class UnNormalizedCam(GradCam):
         """(B, S, L') unnormalized cams and (B, 2) outputs."""
         cams, outs = self.read_cams_batch(xs, targets)
         return np.maximum(0, cams), outs
-
-
-def linear_resize_weights(in_len, out_len):
-    """(in_len, out_len) float64 weights of ``jax.image.resize(...,
-    "linear")`` along one axis: the triangle kernel at the half-pixel
-    centres, widened by the scale when downsampling (antialiasing), each
-    column normalized over the inputs it reaches, and zero for an output
-    centre outside the input (``jax.image.scale_and_translate``)."""
-    scale = out_len / in_len
-    inv_scale = 1.0 / scale
-    kernel_scale = max(inv_scale, 1.0)
-    sample = (np.arange(out_len) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample[None, :] - np.arange(in_len)[:, None]) / kernel_scale
-    weights = np.maximum(0.0, 1.0 - x)
-    total = weights.sum(axis=0, keepdims=True)
-    weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                       weights / np.where(total != 0, total, 1), 0.0)
-    inside = (sample >= -0.5) & (sample <= in_len - 0.5)
-    return np.where(inside[None, :], weights, 0.0)
 
 
 def upsample_cam(cam, target_len=224):

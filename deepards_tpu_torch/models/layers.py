@@ -1,8 +1,9 @@
-"""Shared building blocks for the 1D backbones.
+"""Shared building blocks for the backbones.
 
 Counterpart of ``deepards_tpu/models/layers.py``.  Conventions:
 
-- backbones take and return (N, C, L), PyTorch's layout for ``conv1d``;
+- 1D backbones take and return (N, C, L), PyTorch's layout for
+  ``conv1d``; the 2D ones (N, C, H, W);
 - ``BatchStatNorm`` always normalizes by the current batch's statistics
   (there are no running averages and no train/eval switch), computed in
   float32 (float64 for a float64 input) with the biased variance;
@@ -15,6 +16,7 @@ import contextlib
 import contextvars
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -64,6 +66,26 @@ def conv_kernel_init(weight, generator=None):
     return weight
 
 
+# jax.nn.initializers.truncated_normal's stddev correction for a normal
+# truncated at +-2 standard deviations
+TRUNC_STD = 0.87962566103423978
+
+
+def truncated_normal_(weight, std, generator=None):
+    """Fill ``weight`` with a normal truncated at +-2 standard deviations
+    whose standard deviation is ``std`` (flax's variance-scaling
+    initializers): draws outside the truncation are drawn again."""
+    with torch.no_grad():
+        w = torch.randn(weight.shape, generator=generator)
+        while True:
+            out = w.abs() > 2
+            if not out.any():
+                break
+            w[out] = torch.randn(int(out.sum()), generator=generator)
+        weight.copy_(w * (std / TRUNC_STD))
+    return weight
+
+
 def dense_init(linear, generator=None):
     """A Dense layer's init as the JAX package's flax Dense has it: kernel
     normal(0, 1/sqrt(fan_in)) (the scale of flax's default lecun_normal,
@@ -96,7 +118,9 @@ def promoted_linear(x, linear):
 
 
 class BatchStatNorm(nn.Module):
-    """BatchNorm over (N, C, L) that always uses current-batch statistics.
+    """BatchNorm over (N, C, L), or (N, C, H, W) for the 2D networks, that
+    always uses current-batch statistics: per channel over N and the
+    spatial axes, a row mask over the N rows.
 
     ``forward(x, groups)`` splits the N rows into ``groups`` equal
     consecutive groups with statistics of their own: ``groups=B`` over
@@ -111,6 +135,8 @@ class BatchStatNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x, groups=1):
+        if x.ndim == 4:  # an image's H*W positions as one length
+            return self.forward(x.flatten(2), groups).reshape(x.shape)
         n, c, length = x.shape
         rows = n // groups
         # float32 at least: a float64 model (a reference) stays float64
@@ -132,6 +158,25 @@ class BatchStatNorm(nn.Module):
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight.reshape(1, 1, c, 1) + self.bias.reshape(1, 1, c, 1)
         return y.reshape(n, c, length).to(x.dtype)
+
+
+def linear_resize_weights(in_len, out_len):
+    """(in_len, out_len) float64 weights of ``jax.image.resize(...,
+    "linear")`` along one axis: the triangle kernel at the half-pixel
+    centres, widened by the scale when downsampling (antialiasing), each
+    column normalized over the inputs it reaches, and zero for an output
+    centre outside the input (``jax.image.scale_and_translate``)."""
+    scale = out_len / in_len
+    inv_scale = 1.0 / scale
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(out_len) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(in_len)[:, None]) / kernel_scale
+    weights = np.maximum(0.0, 1.0 - x)
+    total = weights.sum(axis=0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                       weights / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_len - 0.5)
+    return np.where(inside[None, :], weights, 0.0)
 
 
 def max_pool1d(x, window, stride, padding=0):

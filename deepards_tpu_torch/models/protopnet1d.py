@@ -24,11 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepards_tpu_torch.models.layers import promoted_linear
-
-# jax.nn.initializers.truncated_normal's stddev correction for a normal
-# truncated at +-2 standard deviations
-_TRUNC_STD = 0.87962566103423978
+from deepards_tpu_torch.models.layers import (
+    promoted_linear,
+    truncated_normal_,
+)
 
 
 def compute_layer_rf_info(layer_filter_size, layer_stride, layer_padding,
@@ -76,15 +75,8 @@ def _kaiming_normal_(conv, generator=None):
     """flax's ``kaiming_normal``: a normal truncated at +-2 standard
     deviations with variance 2 / fan_in; bias 0."""
     fan_in = conv.weight.shape[1] * conv.weight.shape[2]
-    std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
+    truncated_normal_(conv.weight, math.sqrt(2.0 / fan_in), generator)
     with torch.no_grad():
-        w = torch.randn(conv.weight.shape, generator=generator)
-        while True:  # redraw what falls outside the truncation
-            out = w.abs() > 2
-            if not out.any():
-                break
-            w[out] = torch.randn(int(out.sum()), generator=generator)
-        conv.weight.copy_(w * std)
         conv.bias.zero_()
 
 

@@ -5,8 +5,10 @@ the port has so far: the densenet and resnet backbones, the 1D heads
 (``cnn_linear`` and its variants, ``cnn_regressor``, ``metadata_only``),
 the recurrent and transformer networks (``cnn_lstm``,
 ``cnn_lstm_double_linear``, ``lstm_only``, ``lstm_only_with_packing``,
-``double_lstm``, ``cnn_transformer``), the nested whole-patient networks
-and ``protopnet``.  The JAX package's other entries raise
+``double_lstm``, ``cnn_transformer``), the nested whole-patient networks,
+``protopnet``, and the 2D networks over breath images (the densenet 2D
+and 2x1d backbones, ``cnn_linear_2d``/``_2x1d``, ``protopnet_2d`` and the
+row-band detectors).  The JAX package's other entries raise
 ``NotImplementedError``.  ``conf`` is a mapping of
 configuration keys (``base_network``, ``bn_scope``, ``initial_planes``,
 ...).
@@ -16,9 +18,12 @@ from typing import Callable
 
 from deepards_tpu_torch.models import (
     densenet1d,
+    densenet2d,
+    detection2d,
     heads,
     nested,
     protopnet1d,
+    protopnet2d,
     recurrent,
     resnet1d,
 )
@@ -50,23 +55,32 @@ BASE_NETWORKS.update({
                  "resnet152")
 })
 
+
+def _densenet2d_ctor(name):
+    """The 2D backbones read ``block_kernel_size``; ``in_channels`` is the
+    image's C."""
+    return lambda conf, in_channels: getattr(densenet2d, name)(
+        block_kernel_size=conf.get("block_kernel_size", 3) or 3,
+        in_channels=in_channels)
+
+
+BASE_NETWORKS.update({
+    name: _densenet2d_ctor(name)
+    for name in ("densenet18_2d", "densenet121_2d", "densenet18_2x1d")
+})
+
 # the JAX package's entries that the port does not have yet, and what they
 # are (ROADMAP.md, Queue 1)
 NOT_PORTED = {
     **dict.fromkeys(
         ("vgg11", "vgg11_bn", "vgg13", "vgg13_bn", "senet18", "senet154",
          "se_resnet18", "se_resnet50", "se_resnet101", "se_resnet152",
-         "se_resnext50_32x4d", "se_resnext101_32x4d", "unet", "basic_cnn_ae",
-         "densenet18_2d", "densenet121_2d", "densenet18_2x1d"),
+         "se_resnext50_32x4d", "se_resnext101_32x4d", "unet", "basic_cnn_ae"),
         "base network"),
     **dict.fromkeys(("autoencoder", "siamese_pretrained"), "head"),
-    "protopnet_2d": "network of the protopnet trainer",
     **dict.fromkeys(
         ("siamese_cnn_linear", "siamese_cnn_lstm",
          "siamese_cnn_transformer"), "network of the siamese trainer"),
-    **dict.fromkeys(("retinanet_2d", "retinanet_2x1d", "faster_rcnn_2d"),
-                    "network of the detector trainer"),
-    **dict.fromkeys(("cnn_linear_2d", "cnn_linear_2x1d"), "2D network"),
 }
 
 
@@ -99,13 +113,14 @@ class NetworkSpec:
     # (conf, base_network, n_sub_batches[, metadata_features]) -> module
     build: Callable
     target_mode: str = "per_sample"  # per_sample|per_breath|regression
-    kind: str = "classifier"  # classifier|regressor
+    kind: str = "classifier"  # classifier|regressor|detector
     expand_obs_idx: bool = False  # per-breath heads repeat an index S times
     uses_metadata: bool = False  # reads the metadata input
     stateful_lstm: bool = False  # carries its LSTM state when unshuffled
     super_batch: bool = False  # whole-patient super batches (NestedTrainer)
     eval_dropout_off: bool = False  # eval runs with dropout off
     trainer: str = "standard"  # standard|protopnet
+    two_dim: bool = False  # over ImgARDSDataset images (N, C, H, W)
 
 
 def _bn_scope(conf):
@@ -246,7 +261,40 @@ NETWORK_MAP = {
         eval_dropout_off=True,
         trainer="protopnet",
     ),
+    "cnn_linear_2d": NetworkSpec(
+        "cnn_linear_2d",
+        lambda conf, bb, s, m=0: densenet2d.CNNLinearNetwork2D(bb),
+        two_dim=True),
+    "cnn_linear_2x1d": NetworkSpec(
+        "cnn_linear_2x1d",
+        lambda conf, bb, s, m=0: densenet2d.CNNLinearNetwork2D(bb),
+        two_dim=True),
+    "protopnet_2d": NetworkSpec(
+        "protopnet_2d",
+        lambda conf, bb, s, m=0: protopnet2d.construct_ppnet_2d(
+            bb, n_prototypes=conf.get("n_prototypes", 10) or 10,
+            incorrect_strength=conf.get("incorrect_strength", -0.5) or -0.5),
+        eval_dropout_off=True,
+        trainer="protopnet",
+        two_dim=True),
+    # the reference's three detectors (train_ards_detector.py:118) are one
+    # row-band detector over their backbones, as in the JAX package
+    **{name: NetworkSpec(
+        name,
+        lambda conf, bb, s, m=0: detection2d.RowBandDetector(bb),
+        kind="detector",
+        two_dim=True)
+       for name in ("retinanet_2d", "retinanet_2x1d", "faster_rcnn_2d")},
 }
+
+
+def two_dim_base_network(spec, base):
+    """The backbone a 2D network trains: ``base`` with the suffix of its
+    family, ``_2x1d`` for a ``*_2x1d`` network, else ``_2d``, unless it
+    has one (``deepards_tpu/train/loop.py:242-247``)."""
+    if spec.name.endswith("_2x1d"):
+        return base if "2x1d" in base else base + "_2x1d"
+    return base if "_2d" in base else base + "_2d"
 
 
 def get_network_spec(name):

@@ -25,8 +25,11 @@ order, so both draw the same batches and warps), a ``torch.Generator``
 per fold for the init, and one per fold on the device for dropout.
 A network with an LSTM carry under ``unshuffled`` (cnn_lstm) takes the
 stateful fold instead: one window a step in patient order, the carry kept
-across a patient's windows (``run_stateful_fold``).  ``make_trainer``
-also gives the parallel-fold, ProtoPNet and nested trainers.
+across a patient's windows (``run_stateful_fold``).  A 2D network trains
+on ``ImgARDSDataset`` images in host epochs, as the JAX package does: its
+``gather`` normalizes, filters and augments on the host, and each step is
+still a graph replay.  ``make_trainer`` also gives the parallel-fold,
+ProtoPNet, detector and nested trainers.
 """
 import contextlib
 import os
@@ -37,6 +40,10 @@ import torch
 
 from deepards_tpu_torch.data import augment
 from deepards_tpu_torch.data.dataset import ARDSRawDataset
+from deepards_tpu_torch.data.img_dataset import (
+    ImgARDSDataset,
+    image_channels,
+)
 from deepards_tpu_torch.data.pipeline import BatchPipeline
 from deepards_tpu_torch.device import resolve_device
 from deepards_tpu_torch.eval.metrics import DeepARDSResults, r2_score
@@ -44,6 +51,7 @@ from deepards_tpu_torch.models.registry import (
     get_base_network,
     get_network_spec,
     metadata_features_for,
+    two_dim_base_network,
 )
 from deepards_tpu_torch.train import checkpoint
 from deepards_tpu_torch.train import losses as loss_lib
@@ -69,10 +77,17 @@ def make_trainer(conf, **kwargs):
     """The trainer a configuration asks for, dispatched in the JAX
     package's order (``deepards_tpu/train/loop.py:39-63``): all folds at
     once with ``parallel_folds`` for a network of the standard trainer,
-    the ProtoPNet trainer for its network, the nested trainer for a
-    whole-patient network, else ``Trainer``.  The networks of the trainers
-    not ported yet are refused by ``get_network_spec``."""
+    the ProtoPNet trainer for its networks, the detector trainer for a
+    detector, the nested trainer for a whole-patient network, else
+    ``Trainer``.  The networks of the trainers not ported yet are refused
+    by ``get_network_spec``; ``parallel_folds`` with a 2D network is
+    refused, since its stacked folds gather from the device cache, which
+    images do not use."""
     spec = get_network_spec(conf.network)
+    if conf.get("parallel_folds") and spec.two_dim:
+        raise NotImplementedError(
+            "parallel_folds with the 2D network {}: the port stacks folds "
+            "over the device cache only".format(spec.name))
     if conf.get("parallel_folds") and spec.trainer == "standard":
         from deepards_tpu_torch.train.parallel_folds import (
             ParallelFoldTrainer,
@@ -85,6 +100,12 @@ def make_trainer(conf, **kwargs):
         )
 
         return ProtoPNetTrainer(conf, **kwargs)
+    if spec.kind == "detector":
+        from deepards_tpu_torch.train.detector_trainer import (
+            DetectorTrainer,
+        )
+
+        return DetectorTrainer(conf, **kwargs)
     if spec.super_batch:
         from deepards_tpu_torch.train.nested_trainer import NestedTrainer
 
@@ -180,6 +201,14 @@ def _epoch_order(idx, batch_size):
     return ids.reshape(steps, batch_size), masks.reshape(steps, batch_size)
 
 
+def sample_shapes(dataset):
+    """(shape of one sample, target width): a cache window (S, C, L), or
+    an image (C, H, W)."""
+    if isinstance(dataset, ImgARDSDataset):
+        return dataset.data_shape, dataset.target.shape[1]
+    return dataset.cache.data.shape[1:], dataset.cache.target.shape[1]
+
+
 def _store(outs, i, out, steps):
     """Write step ``i``'s eval output into ``outs`` ((steps,) + its
     shape, allocated at the first step on its device)."""
@@ -216,6 +245,9 @@ class Trainer:
     a CUDA device its steps are CUDA-graph replays."""
 
     _DEVICE_CACHE_MAX_BYTES = 2 << 30  # larger caches take the host epoch
+    # one sample's target in the runner's buffer, where it is not the
+    # dataset's (target width,)
+    target_shape = None
 
     def __init__(self, conf, device=None, verbose=True):
         self.conf = conf
@@ -355,7 +387,45 @@ class Trainer:
                 **self._filters(),
             )
         test_dataset.scaling_factors = train_dataset.scaling_factors
+        if self.spec.two_dim:
+            return self.image_datasets(train_dataset, test_dataset)
         return train_dataset, test_dataset
+
+    def image_options(self):
+        """The ``ImgARDSDataset`` options both splits share: the FFT
+        channels, the Butterworth filter (``butter_freq``) and a
+        detector's bbox splices.  Names the backbone with its 2D suffix
+        (reference: train_ards_detector.py:111-116, 309-313) and sets
+        ``in_channels`` to the images' C."""
+        conf = self.conf
+        conf.conf["base_network"] = two_dim_base_network(
+            self.spec, conf.get("base_network", "densenet18"))
+        fft = dict(add_fft=bool(conf.get("with_fft")),
+                   fft_only=bool(conf.get("only_fft")),
+                   fft_real_only=bool(conf.get("fft_real_only")))
+        self.in_channels = image_channels(**fft)
+        return dict(fft, butter_filter=conf.get("butter_freq"),
+                    bbox=self.spec.kind == "detector")
+
+    def image_datasets(self, train_raw, test_raw):
+        """The splits as ``ImgARDSDataset`` images of ``image_options``.
+        Both splits get the FFT channels and the Butterworth filter: the
+        JAX package gives the test split neither
+        (``deepards_tpu/train/loop.py:259-263``), so there a network
+        trained on three channels is evaluated on three copies of the flow
+        image.  Only the train split gets the 2D transforms and the patho
+        mix (``row_mix``); both get the bbox splices for a detector.
+        ``reload_dataset_per_epoch`` is read by nothing, as in the JAX
+        package."""
+        conf = self.conf
+        options = self.image_options()
+        train = ImgARDSDataset(
+            train_raw, extra_transforms=conf.get("two_dim_transforms") or [],
+            same_patho_mix=bool(conf.get("row_mix")), seed=self.seed,
+            **options)
+        test = ImgARDSDataset(test_raw, seed=self.seed + 1, **options)
+        test.scaling_factors = train.scaling_factors
+        return train, test
 
     # -- model ----------------------------------------------------------------
 
@@ -459,19 +529,41 @@ class Trainer:
         self.perform_post_modeling_actions()
         return self.results
 
-    def make_runner(self, state, dataset, train_step, eval_step):
-        """The fold's ``StepRunner`` for batches of ``dataset``'s windows:
-        its graphs are captured here, after the fold's state is final."""
+    def make_runner(self, state, dataset, train_step, eval_step,
+                    graphed=None):
+        """The fold's ``StepRunner`` for batches of ``dataset``'s windows
+        or images, its target buffer of ``target_shape`` where that is
+        set: its graphs are captured here, after the fold's state is final
+        (on the card, unless ``graphed`` is False)."""
         batch_size = self.conf.get("batch_size", 16)
-        cache = dataset.cache
         meta_shape = None
         if self.meta_features:
-            meta_shape = (batch_size,) + cache.meta.shape[1:]
+            meta_shape = (batch_size,) + dataset.cache.meta.shape[1:]
+        data_shape, target_width = sample_shapes(dataset)
+        extra = None
+        if self.target_shape is not None:
+            extra = {"target": torch.zeros(
+                (batch_size,) + self.target_shape, device=self.device)}
+        if graphed is None:
+            graphed = self.device.type == "cuda"
         return StepRunner(state, train_step, eval_step,
-                          (batch_size,) + cache.data.shape[1:],
-                          target_width=cache.target.shape[1],
-                          meta_shape=meta_shape,
-                          graphed=self.device.type == "cuda")
+                          (batch_size,) + data_shape,
+                          target_width=target_width, meta_shape=meta_shape,
+                          graphed=graphed, extra_inputs=extra)
+
+    def step_options(self, dataset):
+        """``make_train_step``'s options for this network over the train
+        split ``dataset``: its batch transforms on the device, or none for
+        images (``gather`` normalizes them), and the norms' rows, the B*S
+        windows or the B images."""
+        two_dim = self.spec.two_dim
+        return dict(
+            transform=None if two_dim else BatchPipeline(dataset,
+                                                         self.device),
+            compute_dtype=self.compute_dtype,
+            eval_dropout_active=not self.spec.eval_dropout_off,
+            target_mode=self.spec.target_mode,
+            bn_mask_rows="batch" if two_dim else "windows")
 
     def fold_state(self, fold_num):
         """``new_state``, then the checkpoint or the base network the
@@ -484,21 +576,25 @@ class Trainer:
             self.load_base_network(state, conf.load_base_network)
         return state
 
+    def sample_draws(self, dataset):
+        """The JAX package's trainers gather two images of the train split
+        at each fold's start to initialize the model, which draws their 2D
+        transforms from the dataset's generator: the port gathers them too
+        (and drops them), so that both draw the same images after."""
+        if self.spec.two_dim:
+            dataset.gather(dataset.current_indices()[:2])
+
     def run_fold(self, fold_num, train_dataset, test_dataset):
         conf = self.conf
         self.last_train_count = len(train_dataset.current_indices())
         self.last_test_count = len(test_dataset.current_indices())
+        self.sample_draws(train_dataset)
         state = self.fold_state(fold_num)
         if self.spec.stateful_lstm and conf.get("unshuffled"):
             return self.run_stateful_fold(state, train_dataset, test_dataset,
                                           fold_num)
         train_step, eval_step = make_train_step(
-            self.loss_fn,
-            transform=BatchPipeline(train_dataset, self.device),
-            compute_dtype=self.compute_dtype,
-            eval_dropout_active=not self.spec.eval_dropout_off,
-            target_mode=self.spec.target_mode,
-        )
+            self.loss_fn, **self.step_options(train_dataset))
         runner = self.make_runner(state, train_dataset, train_step,
                                   eval_step)
         epochs = conf.get("epochs", 10)
@@ -679,10 +775,11 @@ class Trainer:
         """The default epoch: eligible when nothing needs the host inside
         the epoch (no augmentation, no step checkpoints or mid-epoch
         resume, no stop-on-loss breaker, no debug single batch) and the
-        cache fits, unless ``device_cache`` says otherwise."""
+        cache fits, unless ``device_cache`` says otherwise.  Images take
+        host epochs, as in the JAX package."""
         conf = self.conf
         flag = conf.get("device_cache")
-        if flag is False:
+        if flag is False or self.spec.two_dim:
             return False
         if callable(getattr(dataset, "transforms", None)):
             return False
@@ -734,6 +831,24 @@ class Trainer:
                 outs = _store(outs, i, out, steps)
         if losses is None:  # an empty split
             losses = torch.empty(0, device=self.device)
+        return losses, outs
+
+    def _host_steps(self, runner, batches, steps, train=True):
+        """One step per batch of ``batches`` (dicts of the runner's inputs
+        on the device, prepared on the host by a ``PrefetchLoader`` thread
+        ahead of the card), each copied into the runner's buffers.
+        Returns the losses and, for eval, the outputs, as
+        ``_device_steps`` stores them (None for no batch)."""
+        losses = outs = None
+        for i, batch in enumerate(batches):
+            for key, value in batch.items():
+                runner.inputs[key].copy_(value)
+            if train:
+                losses = _store(losses, i, runner.train(), steps)
+            else:
+                loss, out = runner.eval()
+                losses = _store(losses, i, loss, steps)
+                outs = _store(outs, i, out, steps)
         return losses, outs
 
     def _run_train_epoch_device_cache(self, runner, dataset, fold_num,
@@ -883,15 +998,9 @@ class Trainer:
                                               False)
         else:
             loader = EpochLoader(dataset, batch_size, shuffle=False)
-            losses = torch.empty(len(loader), device=self.device)
-            outs = None
-            batches = PrefetchLoader(
-                loader, map_fn=lambda b: self.device_batch(b, batch_size))
-            for i, batch in enumerate(batches):
-                for key, value in batch.items():
-                    runner.inputs[key].copy_(value)
-                losses[i], out = runner.eval()
-                outs = _store(outs, i, out, len(loader))
+            losses, outs = self._host_steps(runner, PrefetchLoader(
+                loader, map_fn=lambda b: self.device_batch(b, batch_size)),
+                len(loader), train=False)
         # both paths visit idx in order; the pad rows end the last batch
         self._defer(lambda: self._record_eval(
             losses.cpu().numpy(),

@@ -22,16 +22,29 @@ Epochs: ``n_warm_epochs`` warm epochs, then joint ones; at
 and ``n_push_iters`` last-layer epochs; a test epoch after every epoch.
 On the card each stage's step is a CUDA-graph replay over the device
 cache (one graph a stage, the eval graph with the last stage's); the push
-runs eager batches.  Under bfloat16 compute the train forward casts the
-params as ``Trainer``'s steps do; eval and the push run in float32, as the
-JAX package's do.
+runs eager batches.  ``protopnet_2d`` takes host epochs over its images,
+as the JAX package's trainer does (``deepards_tpu/train/
+protopnet_trainer.py:125-130, 172, 208-211, 441-451``): each batch
+gathered, normalized and augmented on the host in the JAX package's order
+(zero-padded at the end of an epoch), its norms' rows the images, its
+push over the train images in order through ``gather``.  Under bfloat16
+compute the train forward casts the params as ``Trainer``'s steps do;
+eval and the push run in float32, as the JAX package's do.
 """
+import itertools
+
 import numpy as np
 import torch
 
 from deepards_tpu_torch.data.pipeline import BatchPipeline
 from deepards_tpu_torch.models.layers import bn_row_mask
-from deepards_tpu_torch.train.loop import Trainer, _epoch_order
+from deepards_tpu_torch.train.loader import EpochLoader, PrefetchLoader
+from deepards_tpu_torch.train.loop import (
+    Trainer,
+    _epoch_order,
+    _pad_batch,
+    sample_shapes,
+)
 from deepards_tpu_torch.train.steps import (
     StepRunner,
     TrainState,
@@ -101,18 +114,24 @@ class StagedOptimizers:
 
 def make_ppnet_steps(model, transform, class_identity_windows, max_dist,
                      clust_lambda=0.8, sep_lambda=0.2, use_l1=False,
-                     compute_dtype=None, dropout_active=True):
+                     compute_dtype=None, dropout_active=True,
+                     bn_mask_rows="windows"):
     """({stage: train_step}, eval_step) over ``(state, data, target,
     mask)`` batches, as ``make_train_step``'s: the row mask scoped for the
-    norms and weighting the loss.  A stage's train step returns the (5,)
-    loss, cls, cluster, separation and l1; the eval step (float32, dropout
-    off, no L1, as the JAX package's) the loss and the logits."""
+    norms (repeated over the S windows, or as it is with ``bn_mask_rows``
+    'batch') and weighting the loss; ``transform`` None for images.  A
+    stage's train step returns the (5,) loss, cls, cluster, separation and
+    l1; the eval step (float32, dropout off, no L1, as the JAX package's)
+    the loss and the logits."""
     groups = stage_groups(model)
     ident = class_identity_windows
 
     def forward(state, data, mask, active, cast):
-        data = transform(data)
-        rows = mask[:, None].expand(-1, data.shape[1]).reshape(-1)
+        if transform is not None:
+            data = transform(data)
+        rows = mask
+        if bn_mask_rows == "windows":
+            rows = mask[:, None].expand(-1, data.shape[1]).reshape(-1)
         with bn_row_mask(rows):
             if cast and compute_dtype is not None:
                 params = {name: p.to(compute_dtype)
@@ -176,33 +195,36 @@ class ProtoPNetTrainer(Trainer):
         model = state.model
         ident = torch.as_tensor(model.class_identity_windows(),
                                 device=self.device)
+        options = self.step_options(dataset)
         return make_ppnet_steps(
-            model, BatchPipeline(dataset, self.device), ident,
+            model, options["transform"], ident,
             model.max_dist, clust_lambda=conf.get("clust_lambda", 0.8),
             sep_lambda=conf.get("sep_lambda", 0.2),
             use_l1=bool(conf.get("use_l1")),
-            compute_dtype=self.compute_dtype, dropout_active=dropout)
+            compute_dtype=self.compute_dtype, dropout_active=dropout,
+            bn_mask_rows=options["bn_mask_rows"])
 
     def make_runners(self, state, dataset, dropout=True, graphed=None):
         """A ``StepRunner`` a stage over the fold's model and generator,
         the eval step with the last stage's; CUDA-graph replays on the
         card unless ``graphed`` says otherwise."""
         train_steps, eval_step = self.make_steps(state, dataset, dropout)
-        cache = dataset.cache
-        shape = (self.conf.get("batch_size", 16),) + cache.data.shape[1:]
+        data_shape, target_width = sample_shapes(dataset)
+        shape = (self.conf.get("batch_size", 16),) + data_shape
         if graphed is None:
             graphed = self.device.type == "cuda"
         return {stage: StepRunner(
             TrainState(state.model, state.optimizer.stages[stage],
                        state.generator),
             train_steps[stage], eval_step if stage == "last" else None,
-            shape, target_width=cache.target.shape[1], graphed=graphed)
+            shape, target_width=target_width, graphed=graphed)
             for stage in STAGES}
 
     def run_fold(self, fold_num, train_dataset, test_dataset):
         conf = self.conf
         self.last_train_count = len(train_dataset.current_indices())
         self.last_test_count = len(test_dataset.current_indices())
+        self.sample_draws(train_dataset)
         state = self.new_state(fold_num)
         runners = self.make_runners(state, train_dataset)
         epochs = conf.get("epochs", 10)
@@ -242,15 +264,32 @@ class ProtoPNetTrainer(Trainer):
         return state
 
     def run_ppnet_epoch(self, runner, dataset, fold_num, epoch_num):
-        """One epoch of a stage over the device cache: a permutation from
-        the host generator, as the JAX package draws it."""
-        idx = np.asarray(dataset.current_indices())
-        ids, masks = _epoch_order(self.host_rng.permutation(idx),
-                                  self.conf.get("batch_size", 16))
-        if self.conf.get("debug"):
-            ids, masks = ids[:1], masks[:1]
-        out, _ = self._device_steps(runner, dataset, ids, masks, True)
+        """One epoch of a stage over the device cache (a host epoch for
+        images): a permutation from the host generator, as the JAX
+        package draws it."""
+        if self.spec.two_dim:
+            out = self._host_ppnet_steps(runner, dataset)
+        else:
+            idx = np.asarray(dataset.current_indices())
+            ids, masks = _epoch_order(self.host_rng.permutation(idx),
+                                      self.conf.get("batch_size", 16))
+            if self.conf.get("debug"):
+                ids, masks = ids[:1], masks[:1]
+            out, _ = self._device_steps(runner, dataset, ids, masks, True)
         self._defer(self._record_ppnet_losses, out, fold_num, epoch_num)
+
+    def _host_ppnet_steps(self, runner, dataset):
+        """A stage's steps over batches gathered on the host (a thread
+        prepares the next while the card runs one; one batch with
+        ``debug``): the (steps, 5) losses on the device."""
+        batch_size = self.conf.get("batch_size", 16)
+        loader = EpochLoader(dataset, batch_size, shuffle=True,
+                             rng=self.host_rng)
+        steps = 1 if self.conf.get("debug") else len(loader)
+        batches = PrefetchLoader(
+            itertools.islice(loader, steps),
+            map_fn=lambda b: self.device_batch(b, batch_size))
+        return self._host_steps(runner, batches, steps)[0]
 
     def _record_ppnet_losses(self, out, fold_num, epoch_num):
         for row in out.cpu().numpy():
@@ -268,26 +307,24 @@ class ProtoPNetTrainer(Trainer):
         out of the norms' statistics and masked to inf before the argmin),
         the host keeping a strictly smaller distance across batches, so the
         first batch wins a tie.  Records ``push_info`` (window index, flat
-        position in the window's S*L' patches, distance) per prototype in
+        position in the window's S*L' patches or, for an image, its
+        row-major H'*W' positions, distance) per prototype in
         ``self.last_push_info`` (reference: ppnet_push.py's loop)."""
         batch_size = self.conf.get("batch_size", 16)
         p, c = model.num_prototypes, model.proto_channels
-        pipeline = BatchPipeline(dataset, self.device)
-        dev = self._get_device_cache(dataset)
         cls_of_proto = torch.as_tensor(model.class_identity().argmax(axis=1),
                                        device=self.device)
         protos = torch.arange(p, device=self.device)
         idx = np.asarray(dataset.current_indices())
-        ids, masks = _epoch_order(idx, batch_size)
         best = np.full(p, np.inf)
         patches = np.zeros((p, c), np.float32)
         push_info = [None] * p
-        for step, (ids_s, mask_s) in enumerate(zip(ids, masks)):
-            rows_d = torch.as_tensor(ids_s, device=self.device)
-            valid = torch.as_tensor(mask_s > 0, device=self.device)
-            data = pipeline(dev["data"].index_select(0, rows_d))
-            label = dev["target"].index_select(0, rows_d).argmax(dim=1)
-            with bn_row_mask(valid.float().repeat_interleave(data.shape[1])):
+        for step, (data, label, valid) in enumerate(
+                self._push_batches(dataset, idx, batch_size)):
+            rows = valid.float()
+            if not self.spec.two_dim:
+                rows = rows.repeat_interleave(data.shape[1])
+            with bn_row_mask(rows):
                 feats, dists = model.push_forward(data, True)
             b = dists.shape[0]
             flat_d = dists.reshape(b, -1, p)
@@ -315,3 +352,29 @@ class ProtoPNetTrainer(Trainer):
         self.last_push_info = push_info
         self.push_infos.append(push_info)
         return push_info
+
+    def _push_batches(self, dataset, idx, batch_size):
+        """(data, labels, valid rows) of the windows ``idx`` in order, in
+        batches of ``batch_size`` on the device: gathered on the card from
+        the device cache and normalized there (the last batch filled by
+        tiling), or for images gathered on the host (the last batch
+        zero-padded)."""
+        if self.spec.two_dim:
+            for start in range(0, len(idx), batch_size):
+                batch = dataset.gather(idx[start:start + batch_size])
+                batch, mask = _pad_batch(
+                    {"data": batch["data"], "target": batch["target"]},
+                    batch_size)
+                target = torch.from_numpy(batch["target"]).to(self.device)
+                yield (torch.from_numpy(batch["data"]).to(self.device),
+                       target.argmax(dim=1),
+                       torch.from_numpy(mask > 0).to(self.device))
+            return
+        pipeline = BatchPipeline(dataset, self.device)
+        dev = self._get_device_cache(dataset)
+        ids, masks = _epoch_order(idx, batch_size)
+        for ids_s, mask_s in zip(ids, masks):
+            rows_d = torch.as_tensor(ids_s, device=self.device)
+            yield (pipeline(dev["data"].index_select(0, rows_d)),
+                   dev["target"].index_select(0, rows_d).argmax(dim=1),
+                   torch.as_tensor(mask_s > 0, device=self.device))

@@ -93,11 +93,12 @@ def make_train_step(
     dropout_active: bool = True,
     eval_dropout_active: Optional[bool] = None,
     target_mode: str = "per_sample",
+    bn_mask_rows: str = "windows",
 ):
     """(train_step, eval_step), each called as ``(state, data, target,
-    mask, meta=None)`` with raw (B, S, C, L) data, (B, T) targets, the
-    (B,) row mask and, for a head with a metadata input, (B, S, M)
-    metadata, all on the model's device.
+    mask, meta=None)`` with raw (B, S, C, L) data (or (B, C, H, W)
+    images), (B, T) targets, the (B,) row mask and, for a head with a
+    metadata input, (B, S, M) metadata, all on the model's device.
 
     target_mode: how the model's output meets the target
     (``deepards_tpu/train/steps.py:196-197``): 'per_sample', (B, 2)
@@ -110,8 +111,11 @@ def make_train_step(
     compute_dtype: params and data are cast to it for the forward and the
     logits back to float32 for the loss; the cast is inside autograd, so
     grads reach the float32 master params.
-    The row mask is repeated S times for ``BatchStatNorm``, whose rows
-    are the B*S windows, and weights the loss as it is.
+    bn_mask_rows: 'windows' repeats the row mask S times for
+    ``BatchStatNorm``, whose rows are the B*S windows; 'batch' gives it
+    as it is, for images, whose backbone rows are the B images
+    (``deepards_tpu/train/steps.py:160-176``).  The mask weights the loss
+    as it is.
     Eval runs under ``torch.no_grad`` with dropout as
     ``eval_dropout_active`` says (default: as in training), drawing its
     masks from the same generator, so each eval advances it.
@@ -120,6 +124,8 @@ def make_train_step(
     """
     if target_mode not in ("per_sample", "per_breath", "regression"):
         raise ValueError("unknown target_mode: {}".format(target_mode))
+    if bn_mask_rows not in ("windows", "batch"):
+        raise ValueError("unknown bn_mask_rows: {}".format(bn_mask_rows))
     if eval_dropout_active is None:
         eval_dropout_active = dropout_active
 
@@ -138,9 +144,11 @@ def make_train_step(
         else:
             def apply(x):
                 return model(x, not active, state.generator, meta)
-        # (B,) -> (B*S,): each sample's mask once per window, as
-        # repeat_interleave would, without its host sync
-        rows = mask[:, None].expand(-1, data.shape[1]).reshape(-1)
+        rows = mask
+        if bn_mask_rows == "windows":
+            # (B,) -> (B*S,): each sample's mask once per window, as
+            # repeat_interleave would, without its host sync
+            rows = mask[:, None].expand(-1, data.shape[1]).reshape(-1)
         with bn_row_mask(rows):
             out = apply(data)
         if isinstance(out, tuple):

@@ -16,10 +16,12 @@ nested dicts of arrays, or flat with "a/b/c" keys as
 Names are mapped by one table per block family (``Family``): a module's
 fixed names, and its indexed kinds, where ``Kind_k`` is entry k of a list.
 The backbone's family is ResNet when the tree has a ``BasicBlock_i`` or
-``Bottleneck_i``, else DenseNet.  A network's ``Dense_0`` is its ``head``,
-unless it has a chain of Dense layers (``Dense_1`` too), which are
-``layers.k``; ``OptimizedLSTMCell_0`` is its ``lstm`` (``_1``, the double
-LSTM's second, its ``sequence_lstm``), ``SimpleCell_0`` its ``rnn``
+``Bottleneck_i``, DenseNet-2D when it has a ``DenseLayer2D_i`` (its convs
+flax ``Conv_k`` with no ``Conv1d`` around them), else DenseNet.  A
+network's ``Dense_0`` is its ``head``, unless it has a chain of Dense
+layers (``Dense_1`` too), which are ``layers.k``; ``OptimizedLSTMCell_0``
+is its ``lstm`` (``_1``, the double LSTM's second, its ``sequence_lstm``),
+``SimpleCell_0`` its ``rnn``
 (Dense ``i`` the ``input``, ``h`` the ``hidden``), ``Transformer_0`` its
 ``transformer``, whose ``Block_k`` are ``blocks.k``, each with its
 ``MultiHeadAttention_0`` as ``attention`` and its ``LayerNorm_k`` and
@@ -27,12 +29,14 @@ LSTM's second, its ``sequence_lstm``), ``SimpleCell_0`` its ``rnn``
 is one ``breath_block`` shared by its windows.  A PPNet's
 ``add_on_layers/Conv_k`` are ``add_on_layers.convs.k``, its
 ``last_layer`` and ``prototype_vectors`` keep their names (the
-prototypes their layout too).
+prototypes their layout too).  The row-band detector's ``Dense_0`` and
+``Dense_1`` are its ``layers.0`` and ``layers.1``.
 
-Layouts: conv kernels go from (K, Cin, Cout) to (Cout, Cin, K), Dense
-kernels (in, out) are transposed to (out, in), norm scale/bias become
-weight/bias.  ``load_sgd_momentum`` maps the momentum of an optax SGD
-state the same way, into a torch SGD's state.
+Layouts: conv kernels go from (K, Cin, Cout) to (Cout, Cin, K) and from
+(H, W, Cin, Cout) to (Cout, Cin, H, W), Dense kernels (in, out) are
+transposed to (out, in), norm scale/bias become weight/bias.
+``load_sgd_momentum`` maps the momentum of an optax SGD state the same
+way, into a torch SGD's state.
 """
 from collections.abc import Mapping
 from typing import NamedTuple
@@ -60,6 +64,16 @@ _DENSENET = Family(
            "BatchStatNorm_1": ("norm5", None)},
     indexed={"DenseLayer": ("dense_layers", _DENSE_LAYER),
              "Transition": ("transitions", _TRANSITION)})
+_DENSE_LAYER_2D = Family(fixed={
+    "BatchStatNorm_0": ("norm1", None), "Conv_0": ("conv1", None),
+    "BatchStatNorm_1": ("norm2", None), "Conv_1": ("conv2", None)})
+_TRANSITION_2D = Family(fixed={"BatchStatNorm_0": ("norm", None),
+                               "Conv_0": ("conv", None)})
+_DENSENET_2D = Family(
+    fixed={"Conv_0": ("conv0", None), "BatchStatNorm_0": ("norm0", None),
+           "BatchStatNorm_1": ("norm5", None)},
+    indexed={"DenseLayer2D": ("dense_layers", _DENSE_LAYER_2D),
+             "Transition2D": ("transitions", _TRANSITION_2D)})
 # a ResNet stem and its blocks index convs and norms in creation order
 _RESNET_BLOCK = Family(indexed={"Conv1d": ("convs", _CONV),
                                 "BatchStatNorm": ("norms", None)})
@@ -100,9 +114,13 @@ def _network(backbone, dense_chain):
 def _root_family(paths):
     """The family of the tree's top level, from the names it holds."""
     names = {name for path in paths for name in path[:-1]}
-    resnet = any(n.rpartition("_")[0] in ("BasicBlock", "Bottleneck")
-                 for n in names)
-    backbone = _RESNET if resnet else _DENSENET
+    kinds = {n.rpartition("_")[0] for n in names}
+    if kinds & {"BasicBlock", "Bottleneck"}:
+        backbone = _RESNET
+    elif "DenseLayer2D" in kinds:
+        backbone = _DENSENET_2D
+    else:
+        backbone = _DENSENET
     top = {path[0] for path in paths}
     if not top & {"breath_block", "OptimizedLSTMCell_0", "SimpleCell_0",
                   "Dense_0", "Transformer_0", "prototype_vectors"}:
@@ -151,7 +169,10 @@ def transplant(params):
     for path, value in items:
         value = np.asarray(value, np.float32)
         if path[-1] == "kernel":
-            value = np.transpose(value, tuple(range(value.ndim))[::-1])
+            # (..., in, out) -> (out, in, ...)
+            value = np.transpose(
+                value, (value.ndim - 1, value.ndim - 2)
+                + tuple(range(value.ndim - 2)))
         state[_port_key(path, family)] = torch.tensor(
             np.ascontiguousarray(value))
     return state

@@ -465,10 +465,10 @@ def test_network_without_backbone_trains(synthetic_cohort, tmp_path):
 
 
 @pytest.mark.parametrize("over", [
-    dict(network="protopnet_2d"),
+    dict(network="siamese_cnn_linear"),
     dict(network="siamese_cnn_lstm", parallel_folds=True),
     dict(network="siamese_cnn_transformer"), dict(network="autoencoder"),
-    dict(network="cnn_linear_2d"),
+    dict(network="siamese_pretrained"),
 ])
 def test_unported_paths_raise(synthetic_cohort, tmp_path, over):
     with pytest.raises(NotImplementedError, match="not ported"):

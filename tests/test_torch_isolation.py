@@ -76,7 +76,13 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.models.heads",
             "deepards_tpu_torch.models.transformer",
             "deepards_tpu_torch.models.nested",
-            "deepards_tpu_torch.train.nested_trainer"} <= set(
+            "deepards_tpu_torch.train.nested_trainer",
+            "deepards_tpu_torch.data.img_dataset",
+            "deepards_tpu_torch.data.img_transforms",
+            "deepards_tpu_torch.models.densenet2d",
+            "deepards_tpu_torch.models.protopnet2d",
+            "deepards_tpu_torch.models.detection2d",
+            "deepards_tpu_torch.train.detector_trainer"} <= set(
                 report["modules"])
     forbidden = [
         name for name in report["loaded"]

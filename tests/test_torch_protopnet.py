@@ -358,7 +358,8 @@ def test_registry_builds_config_5():
     """``protopnet`` builds config 5's PPNet from the configuration (10
     prototypes a class, the class-identity layer tiled S times) for the
     ProtoPNet trainer, evaluated with dropout off as that trainer does;
-    ``protopnet_2d`` is still refused."""
+    ``protopnet_2d`` builds PPNet2D for the same trainer (one image's 20
+    prototypes into the last layer)."""
     spec = get_network_spec("protopnet")
     conf = {"base_network": "densenet18", "n_prototypes": 10,
             "incorrect_strength": -0.5}
@@ -366,5 +367,9 @@ def test_registry_builds_config_5():
     assert (spec.trainer, spec.eval_dropout_off) == ("protopnet", True)
     assert model.prototype_shape == (20, 128, 1)
     assert tuple(model.last_layer.weight.shape) == (2, 400)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_network_spec("protopnet_2d")
+    spec_2d = get_network_spec("protopnet_2d")
+    conf_2d = dict(conf, base_network="densenet18_2d")
+    model_2d = spec_2d.build(conf_2d, get_base_network(conf_2d), 20)
+    assert (spec_2d.trainer, spec_2d.two_dim) == ("protopnet", True)
+    assert model_2d.prototype_shape == (20, 128)
+    assert tuple(model_2d.last_layer.weight.shape) == (2, 20)

@@ -325,8 +325,8 @@ def test_unported_options_raise(synthetic_cohort, tmp_path, option):
 
 @pytest.mark.parametrize("over", [
     dict(network="cnn_linear_2d", parallel_folds=True),
-    dict(network="protopnet_2d"),
-    dict(network="siamese_cnn_linear"), dict(network="retinanet_2d"),
+    dict(network="siamese_cnn_transformer"),
+    dict(network="siamese_cnn_linear"), dict(network="autoencoder"),
     dict(network="siamese_pretrained"),
 ])
 def test_other_trainers_raise(synthetic_cohort, tmp_path, over):
