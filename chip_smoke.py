@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (deepards_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases a,b]
 
-Run from the root of a checkout on a machine with an NVIDIA H100.  It
+Run from the root of a checkout on a machine with an NVIDIA H100.  With
+``--phases`` it runs ``env``, ``build`` and the kernel check, then the
+named phases of ``PHASES`` alone (a phase that reads another's
+checkpoints asks for it); with none it runs every phase.  It
 builds the CUDA kernels from the checkout's sources with nvcc, holds each
 kernel against its plain PyTorch version (the DTW kernel exactly, at six
 shapes, each timed beside a bound computed from the FP32 instructions per
@@ -69,9 +72,16 @@ over 224x224 breath images, each step a graph replay on the card, holds 3
 full-width steps to the CPU (a ProtoPNet stage 1, and its push), graphed
 steps to eager ones and a cnn_linear_2d checkpoint's ``cli.predict`` to
 the trainer's eval, and times the bf16 graphed step and a host epoch
-with its share in ``gather``; one line a network.  Every other phase
-prints one JSON line, and ``phase_seconds`` each phase's seconds; any
-failure exits nonzero.  The last two lines are the card's ``nvidia-smi`` name and power limit and
+with its share in ``gather``; one line a network.  Then ``siamese``
+takes each twin network (``SIAMESE_FLAGS``) through the CLI, checks its
+triplets (a negative from the anchor's own patient must fail), holds 3
+steps to the CPU and graphed steps to eager ones and times the step,
+then siamese_pretrained with each time layer from siamese_cnn_linear's
+checkpoint, served and predicted against the trainer; ``backbones``
+does the same for each new base network under cnn_linear, the
+autoencoder and ProtoPNet over vgg11_bn (``BACKBONE_FLAGS``); one line a
+network.  Every other phase prints one JSON line, and ``phase_seconds``
+each phase's seconds; any failure exits nonzero.  The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints
 no result.
 """
@@ -201,13 +211,56 @@ TWO_D_FLAGS = {
 # protopnet_2d's schedule cut to every stage and one push
 PPNET_2D_CUT = ["--n-warm-epochs", "1", "-pse", "2", "--push-every-n", "1",
                 "--n-push-iters", "1"]
+# the siamese networks (the ``siamese`` phase) at config 1's width: its
+# flags without folds, which the siamese trainer refuses (no yml of the
+# JAX package names them), over the ``main`` holdout; then
+# siamese_pretrained with each time layer as config 1, its backbone
+# spliced from siamese_cnn_linear's checkpoint
+SIAMESE = ("siamese_cnn_linear", "siamese_cnn_lstm", "siamese_cnn_transformer")
+TIME_LAYERS = ("none", "lstm", "transformer")
+SIAMESE_BASE = [
+    "--clip-val", "0.01", "--clip-grad",
+    "--dataset-type", "unpadded_centered_sequences", "--epochs", "10",
+    "--batch-size", "16", "--n-sub-batches", "20"]
+SIAMESE_FLAGS = {
+    **{name: SIAMESE_BASE + ["--network", name] for name in SIAMESE},
+    **{"siamese_pretrained_" + layer: CONFIG1_FLAGS + [
+        "--network", "siamese_pretrained", "--siamese-time-layer", layer]
+       for layer in TIME_LAYERS}}
+# the remaining base networks (the ``backbones`` phase) under config 1's
+# cnn_linear; the autoencoder over basic_cnn_ae on its dataset type, as
+# the siamese networks;
+# config 5's ProtoPNet over vgg11_bn, cut to one stage and a push
+BACKBONES = ("vgg11", "vgg11_bn", "vgg13", "vgg13_bn", "senet18", "senet154",
+             "se_resnet18", "se_resnet50", "se_resnet101", "se_resnet152",
+             "se_resnext50_32x4d", "se_resnext101_32x4d", "unet",
+             "basic_cnn_ae")
+BACKBONE_FLAGS = {
+    **{"cnn_linear_" + base: CONFIG1_FLAGS + ["--base-network", base]
+       for base in BACKBONES},
+    # over the main holdout: its windows' targets are NaN, so the
+    # patients have no class to stratify 5 folds by
+    "autoencoder": SIAMESE_BASE + [
+        "--network", "autoencoder", "--base-network", "basic_cnn_ae",
+        "--dataset-type", "unpadded_downsampled_autoencoder_sequences"],
+    "protopnet_vgg11_bn": CONFIG5_FLAGS + ["--base-network", "vgg11_bn"]}
+PPNET_VGG_CUT = ["--epochs", "1", "--n-warm-epochs", "1", "-pse", "1",
+                 "--push-every-n", "1", "--n-push-iters", "1"]
+# one name a block, trained through the CLI and (but ProtoPNet) held card
+# vs CPU; the other names differ from one of these in depth or groups
+BACKBONE_BY_BLOCK = ("cnn_linear_vgg11", "cnn_linear_vgg13_bn",
+                     "cnn_linear_senet18", "cnn_linear_se_resnet50",
+                     "cnn_linear_se_resnext50_32x4d", "cnn_linear_senet154",
+                     "cnn_linear_unet", "cnn_linear_basic_cnn_ae",
+                     "autoencoder", "protopnet_vgg11_bn")
 CONFIG_FLAGS = {"config1": CONFIG1_FLAGS, "config2": CONFIG2_FLAGS,
                 "config3": CONFIG3_FLAGS, "config4": CONFIG4_FLAGS,
                 # config 4's stateful fold, config 1's folds trained at once
                 # (the JAX benchmark's config 7), config 5
                 "config4_unshuffled": CONFIG4_FLAGS + ["--unshuffled"],
                 "config7": CONFIG1_FLAGS + ["--parallel-folds"],
-                "config5": CONFIG5_FLAGS, **SEQUENCE_FLAGS, **TWO_D_FLAGS}
+                "config5": CONFIG5_FLAGS, **SEQUENCE_FLAGS, **TWO_D_FLAGS,
+                **SIAMESE_FLAGS, **BACKBONE_FLAGS}
 
 # published H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -755,6 +808,11 @@ BY_GRADIENT = {
     **{name: () if name in LSTM_ONLY else ("breath_block.conv0.",)
        for name in SEQUENCE_FLAGS},
     **{name: ("breath_block.conv0.",) for name in TWO_D_FLAGS},
+    **{name: ("breath_block.conv0.",) for name in SIAMESE_FLAGS},
+    # the new backbones' first conv weight: the bias of a conv a norm
+    # follows has a zero gradient, which float32 cannot scale
+    **{name: ("breath_block.convs.0.weight",) for name in BACKBONE_FLAGS},
+    "cnn_linear_unet": ("breath_block.double_convs.0.convs.0.",),
 }
 # Networks that select by sorting: each window's feature at the lower
 # median (cnn_linear_compr_to_rf), or the mean of the middle two (the
@@ -773,7 +831,24 @@ SORTING = ("cnn_linear_compr_to_rf",) + NESTED_NETWORKS
 # 1e-5 in a few backbone conv elements after steps 2 and 3, with the same
 # picks, while float64 agrees to rounding (``cpu_vs_float64`` and
 # ``device_vs_float64`` read each side's float32 distance from float64)
-FLOAT32_PARAM_STEPS = {"cnn_to_nested_transformer": 1}
+#
+# The first conv's float32 gradient is ~1e-3 of its scale off float64's
+# on either device (``BY_GRADIENT``'s reason).  Its elements below the
+# clamp (``--clip-val`` 0.01) pass that error to their update; where one
+# swings across the clamp's range, the conv's params part by lr x 1.9 x
+# 0.02 = 3.8e-5 (Nesterov) and the next step's gradients of the whole
+# backbone follow.  siamese_cnn_linear's and siamese_cnn_transformer's
+# three tower passes a step sum the most into that gradient: at the
+# flags' batch (16) the card's float32 after step 3 leaves float64 by
+# 1.2e-5-1.5e-5 / 3.8e-5 and the CPU's by 5.4e-5 / 4.3e-5 (an H100 at
+# 700 W and its host; ``float32_gap.py --network`` reads the swings), so
+# their float32 params are held after 2 steps.  vgg13_bn's
+# and senet18's float32 steps at 16 fail the CPU against itself (rows
+# permuted) after step 3, so theirs are held after 2 steps too.
+FLOAT32_PARAM_STEPS = {"cnn_to_nested_transformer": 1,
+                       "siamese_cnn_linear": 2, "siamese_cnn_transformer": 2,
+                       "cnn_linear_vgg13_bn": 2, "cnn_linear_senet18": 2}
+
 
 
 def remapped(permuted, nested):
@@ -913,9 +988,12 @@ def train_config(workdir, device, name="config1", epochs=TRAIN_EPOCHS,
         "--device", device] + list(extra))
     seconds = time.perf_counter() - t0
     res = trainer.results
-    classifier = trainer.spec.kind == "classifier"
-    meters = ("test_auc",) if classifier else ("test_mae", "test_mse",
-                                               "test_r2")
+    kind = trainer.spec.kind
+    classifier = kind == "classifier"
+    meters = {"classifier": ("test_auc",),
+              "regressor": ("test_mae", "test_mse", "test_r2"),
+              "autoencoder": ("test_loss",),
+              "siamese": ("accuracy",)}[kind]
     trained = range(kfolds or 1) if folds is None else folds
     folds = {}
     for fold in trained:
@@ -928,8 +1006,10 @@ def train_config(workdir, device, name="config1", epochs=TRAIN_EPOCHS,
         if not losses or not np.isfinite(losses).all():
             raise AssertionError("{} fold {}: losses {}".format(
                 name, fold, losses))
+        # an autoencoder's test losses are one a step
         bad = [m for m, meter in tested.items()
-               if meter is None or len(meter) != epochs
+               if meter is None or len(meter) < epochs
+               or (kind != "autoencoder" and len(meter) != epochs)
                or (not classifier and not np.isfinite(meter.values).all())]
         if bad or (classifier and not rows):
             raise AssertionError("{} fold {}: test meters {} or patient "
@@ -939,7 +1019,7 @@ def train_config(workdir, device, name="config1", epochs=TRAIN_EPOCHS,
             raise AssertionError("{} fold {}: checkpoint or its scaling "
                                  "sidecar missing".format(name, fold))
         folds[fold] = {"steps": len(losses), "last_loss": losses[-1],
-                       **{m: tested[m].values for m in meters}}
+                       **{m: tested[m].values[-epochs:] for m in meters}}
         if classifier:
             folds[fold]["patients"] = len(rows)
     names = os.listdir(results_dir)
@@ -1033,13 +1113,15 @@ class Float32CountAdam:
 
 def train_card_vs_cpu(device, name="config1"):
     """Three steps of config ``name``'s network at full width and batch
-    (a nested network: one patient of NESTED_REAL windows a step), dropout
-    off, on the device and on the CPU from the same params and batches,
-    in float32 and in float64: losses and every param element after each
-    step, as ``TRAIN_STEP_ATOL`` says, with the controls it names; a
-    network of SORTING takes the CPU run's picks on the card, and the
-    card's own sort is held by ``sort_mode``'s bound.  When a check fails,
-    its readings are printed (``card_vs_cpu_failed``) before it raises."""
+    (a nested network: one patient of NESTED_REAL windows a step; a
+    siamese network: triplets of an anchor, its positive and its negative
+    a row), dropout off, on the device and on the CPU from the same
+    params and batches, in float32 and in float64: losses and every param
+    element after each step, as ``TRAIN_STEP_ATOL`` says, with the
+    controls it names; a network of SORTING takes the CPU run's picks on
+    the card, and the card's own sort is held by ``sort_mode``'s bound.
+    When a check fails, its readings are printed (``card_vs_cpu_failed``)
+    before it raises."""
     fields = {"atol": TRAIN_STEP_ATOL, "by_gradient": {}}
     try:
         return _train_card_vs_cpu(device, name, fields)
@@ -1054,6 +1136,7 @@ def _train_card_vs_cpu(device, name, fields):
     from deepards_tpu_torch.data.pipeline import transform_batch
     from deepards_tpu_torch.train.loop import Trainer
     from deepards_tpu_torch.train.nested_trainer import make_nested_steps
+    from deepards_tpu_torch.train.siamese_trainer import make_siamese_steps
     from deepards_tpu_torch.train.steps import (
         TrainState,
         make_optimizer,
@@ -1062,9 +1145,12 @@ def _train_card_vs_cpu(device, name, fields):
 
     conf = config_conf(name, "--device", "cpu")
     s, batch = conf.n_sub_batches, conf.batch_size
+    fields["batch"] = batch
     rng = np.random.default_rng(SEED + 2)
     trainer = Trainer(conf, verbose=False)
     nested = trainer.spec.super_batch
+    # a siamese row is three windows: anchor, positive, negative
+    towers = 3 if trainer.spec.trainer == "siamese" else 1
     if nested:
         # a step is one patient: NESTED_REAL windows padded to its bucket,
         # and the "rows permuted" control reorders each window's breaths
@@ -1079,7 +1165,7 @@ def _train_card_vs_cpu(device, name, fields):
         mask[0, :NESTED_REAL] = 1.0
         permuted = rng.permutation(s)
     else:
-        raw = make_windows(rng, 3 * batch, s)
+        raw = make_windows(rng, 3 * batch * towers, s)
         mu = np.float32([raw.mean()])
         std = np.float32([raw.std()])
         targets = random_targets(rng, 3 * batch, conf)
@@ -1120,6 +1206,12 @@ def _train_card_vs_cpu(device, name, fields):
             return on(dev, dtype, raw[k:k + 1][:, :, rows], targets[k],
                       mask)
         sl = slice(k * batch, (k + 1) * batch)
+        if towers == 3:  # (anchor, target, mask, positive, negative)
+            anchor, positive, negative = (
+                raw[t * 3 * batch:(t + 1) * 3 * batch][sl][rows]
+                for t in range(3))
+            return on(dev, dtype, anchor, targets[sl][rows], mask[rows],
+                      positive, negative)
         return on(dev, dtype, raw[sl][rows], targets[sl][rows], mask[rows])
 
     def steps(dev, dtype, model, optimizer):
@@ -1129,6 +1221,10 @@ def _train_card_vs_cpu(device, name, fields):
             step, _ = make_nested_steps(
                 trainer.loss_fn,
                 transform=lambda d: transform_batch(d, mu_d, std_d),
+                dropout_active=False)
+        elif towers == 3:
+            step, _ = make_siamese_steps(
+                lambda d: transform_batch(d, mu_d, std_d),
                 dropout_active=False)
         else:
             step, _ = make_train_step(
@@ -1221,12 +1317,13 @@ def _train_card_vs_cpu(device, name, fields):
                 "next_batch": [float((exact[k][n] - exact[(k + 1) % 3][n])
                                      .abs().max()) / scale
                                for k in range(3)]}}
+        grad_limit = TRAIN_STEP_ATOL["grad"]
         if min(min(v) for v in check["grad_controls"].values()) <= \
-                TRAIN_STEP_ATOL["grad"]:
+                grad_limit:
             raise AssertionError("{}'s gradient limit would pass a zero or "
                                  "a wrong gradient: {}".format(
                                      n, check["grad_controls"]))
-        if max(check["grad_err"]["device"]) > TRAIN_STEP_ATOL["grad"]:
+        if max(check["grad_err"]["device"]) > grad_limit:
             failed.append("{} gradient vs float64 {}".format(
                 n, check["grad_err"]["device"]))
     # Adam's first update, lr * g / (|g| + eps), of an element that
@@ -1381,8 +1478,8 @@ def softmax_probs(logits):
     return (probs.mean(dim=1) if probs.ndim == 3 else probs).numpy()
 
 
-def train_to_serve(trainer, models_dir, device, name="config1"):
-    """The last fold's checkpoint served: one /predict over HTTP, whose
+def train_to_serve(trainer, models_dir, device, name="config1", fold=4):
+    """Fold ``fold``'s checkpoint served: one /predict over HTTP, whose
     probabilities must be the trainer's final model's on the same
     normalized batch with the server's dropout seed, and the
     deterministic logits of the served model against the trainer's.  A
@@ -1398,15 +1495,17 @@ def train_to_serve(trainer, models_dir, device, name="config1"):
     from deepards_tpu_torch.train import checkpoint as ckpt
 
     conf = trainer.conf
-    path = os.path.join(models_dir, "{}-fold4".format(name))
+    path = os.path.join(models_dir, "{}-fold{}".format(name, fold))
     model = trainer.final_state.model
+    layer = conf.get("siamese_time_layer")
     engine = InferenceEngine(path, network=conf.network,
                              base_network=conf.base_network,
                              n_sub_batches=conf.n_sub_batches,
                              batch_size=conf.batch_size,
                              scaling=ckpt.load_scaling(path),
                              bn_scope=getattr(model, "bn_scope", "sequence"),
-                             device=device)
+                             device=device,
+                             siamese_time_layer=layer or "none")
     engine.warm()
     nested = engine.super_batch
     n = NESTED_REAL if nested else conf.batch_size
@@ -1503,13 +1602,16 @@ def config_fold(name, workdir, device, graphs, ds, dropout=True, *flags):
 
 def train_numbers(workdir, device, name="config1",
                   modes=(("eager", False), ("graphed", True)),
-                  windows=MEASURE_WINDOWS, profile_reps=5):
+                  windows=MEASURE_WINDOWS, profile_reps=5, reps=20,
+                  b2b_reps=3):
     """Step times, profile, memory and epoch rate of config ``name``'s
     step (full width, its batch, bf16, dropout on) on the device-cache
     path, over a cache of MEASURE_WINDOWS random windows built directly:
     the steps run eagerly (``eager``) and as CUDA-graph replays
     (``graphed``), as ``modes`` asks (``windows`` in place of
-    MEASURE_WINDOWS; the profile over ``profile_reps`` steps).  A step is the runner's train call
+    MEASURE_WINDOWS; the profile over ``profile_reps`` steps; a step's time
+    the median of ``reps``, its back-to-back time of ``b2b_reps`` runs of
+    20; none with 0).  A step is the runner's train call
     over a batch already in its buffers; the epoch also gathers each batch
     on the card.  The build time and the peak memory cover the fold's
     state and the runner (the graphed one's warm-up, captures and
@@ -1534,14 +1636,18 @@ def train_numbers(workdir, device, name="config1",
         for key, table in dev.items():
             torch.index_select(table, 0, ids, out=runner.inputs[key])
         runner.inputs["mask"].fill_(1.0)
-        train_ms = cuda_ms(runner.train, warmup=3, reps=20)
-        eval_ms = cuda_ms(runner.eval, warmup=3, reps=20)
+        train_ms = cuda_ms(runner.train, warmup=3, reps=reps)
+        eval_ms = cuda_ms(runner.eval, warmup=3, reps=reps)
         # 20 steps queued back to back: the step-to-step time, which
         # the device bounds once the host queues faster than it runs
-        train_b2b_ms = cuda_ms(lambda: [runner.train() for _ in range(20)],
-                               warmup=1, reps=3) / 20
-        eval_b2b_ms = cuda_ms(lambda: [runner.eval() for _ in range(20)],
-                              warmup=1, reps=3) / 20
+        train_b2b_ms = eval_b2b_ms = None
+        if b2b_reps:
+            train_b2b_ms = cuda_ms(
+                lambda: [runner.train() for _ in range(20)], warmup=1,
+                reps=b2b_reps) / 20
+            eval_b2b_ms = cuda_ms(
+                lambda: [runner.eval() for _ in range(20)], warmup=1,
+                reps=b2b_reps) / 20
         train_profile = device_breakdown(runner.train, reps=profile_reps)
         eval_profile = device_breakdown(runner.eval, reps=profile_reps)
         torch.cuda.synchronize()
@@ -1594,7 +1700,7 @@ GRAPH_STEPS = 8  # graph_vs_eager: device-cache steps from one fold state
 GRAPH_ATOL = 1e-6
 
 
-def graph_vs_eager(workdir, device="cuda", name="config1"):
+def graph_vs_eager(workdir, device="cuda", name="config1", steps=GRAPH_STEPS):
     """GRAPH_STEPS device-cache steps of config ``name`` from one fold
     state (a nested network: ``NESTED_GRAPH_PATIENTS``' patients, two
     buckets whose graphs share one pool), replayed as CUDA graphs and run
@@ -1610,15 +1716,17 @@ def graph_vs_eager(workdir, device="cuda", name="config1"):
 
     conf = config_conf(name)
     rng = np.random.default_rng(SEED + 6)
-    if get_network_spec(conf.network).super_batch:
+    spec = get_network_spec(conf.network)
+    if spec.super_batch:
         run = nested_graph_run(workdir, device, name, rng)
         steps = len(NESTED_GRAPH_PATIENTS)
+    elif spec.trainer == "siamese":
+        run = siamese_graph_run(workdir, device, name, rng, steps)
     elif name in TWO_D_FLAGS:
         run = two_d_graph_run(workdir, device, name)
         steps = GRAPH_STEPS
     else:
-        run = standard_graph_run(workdir, device, name, rng)
-        steps = GRAPH_STEPS
+        run = standard_graph_run(workdir, device, name, rng, steps)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     fields = {"steps": steps, "atol": GRAPH_ATOL}
@@ -1660,17 +1768,17 @@ def graph_vs_eager(workdir, device="cuda", name="config1"):
     return fields, failed
 
 
-def standard_graph_run(workdir, device, name, rng):
-    """``run(graphs, dtype, dropout)`` for ``graph_vs_eager``: GRAPH_STEPS
+def standard_graph_run(workdir, device, name, rng, steps=GRAPH_STEPS):
+    """``run(graphs, dtype, dropout)`` for ``graph_vs_eager``: ``steps``
     device-cache train steps of config ``name`` from fold 0's state, then
     an eval epoch over the same windows; (losses, state, eval outputs)."""
     from deepards_tpu_torch.train.loop import _epoch_order
 
     conf = config_conf(name)
     batch, s = conf.batch_size, conf.n_sub_batches
-    ds = random_cache(rng, GRAPH_STEPS * batch, conf)
-    ds.cache.data[:] = make_windows(rng, GRAPH_STEPS * batch, s)
-    ids, masks = _epoch_order(rng.permutation(GRAPH_STEPS * batch), batch)
+    ds = random_cache(rng, steps * batch, conf)
+    ds.cache.data[:] = make_windows(rng, steps * batch, s)
+    ids, masks = _epoch_order(rng.permutation(steps * batch), batch)
     masks[-1, -3:] = 0.0  # pad rows in the last batch
 
     def run(graphs, dtype, dropout):
@@ -1967,12 +2075,14 @@ def snapshot(tensors):
             for n, v in tensors.items()}
 
 
-def step_profile(fn, reps=20):
-    """A step's time (CUDA events), its back-to-back time over 20 queued
-    calls, device time, kernels and idle share."""
+def step_profile(fn, reps=20, b2b_reps=3, profile_reps=5):
+    """A step's time (CUDA events, the median of ``reps``), its
+    back-to-back time over 20 queued calls (``b2b_reps`` runs), device
+    time, kernels and idle share (a profile of ``profile_reps`` calls)."""
     ms = cuda_ms(fn, warmup=3, reps=reps)
-    b2b = cuda_ms(lambda: [fn() for _ in range(20)], warmup=1, reps=3) / 20
-    prof = device_breakdown(fn)
+    b2b = cuda_ms(lambda: [fn() for _ in range(20)], warmup=1,
+                  reps=b2b_reps) / 20
+    prof = device_breakdown(fn, reps=profile_reps)
     return {"ms": ms, "back_to_back_ms": b2b,
             "device_ms": prof["device_ms_per_call"],
             "launches": prof["kernel_launches_per_call"],
@@ -2527,10 +2637,10 @@ CAM_SEQUENCES = 128  # the JAX benchmark's cam pass (bench.py:951-979)
 CAM_ATOL = 1e-5
 
 
-def ppnet_trainer(device, *flags):
+def ppnet_trainer(device, *flags, name="config5"):
     from deepards_tpu_torch.train.protopnet_trainer import ProtoPNetTrainer
 
-    conf = config_conf("config5", "--device", device, *flags)
+    conf = config_conf(name, "--device", device, *flags)
     trainer = ProtoPNetTrainer(conf, verbose=False)
     trainer.n_sub_batches = conf.n_sub_batches
     return trainer
@@ -2725,7 +2835,7 @@ def push_card_vs_cpu(workdir, device, name="config5"):
     return fields
 
 
-def ppnet_graph_vs_eager(workdir, device):
+def ppnet_graph_vs_eager(workdir, device, name="config5"):
     """GRAPH_STEPS steps of each stage in turn (warm, joint, last) from
     one fold state, then an eval epoch, graphed and eager: float32 with
     dropout off, losses and their parts, params and eval logits within
@@ -2750,7 +2860,8 @@ def ppnet_graph_vs_eager(workdir, device):
         for dtype, dropout in (("float32", False), ("bfloat16", True)):
             runs = {}
             for graphs in (False, True):
-                trainer = ppnet_trainer(device, "--compute-dtype", dtype)
+                trainer = ppnet_trainer(device, "--compute-dtype", dtype,
+                                        name=name)
                 state = trainer.new_state(0)
                 runners = trainer.make_runners(
                     state, ds, dropout=dropout,
@@ -2926,10 +3037,10 @@ def phase_config5(workdir, device="cuda"):
 
 # -- the sequence networks ----------------------------------------------------
 
-# their device-cache epoch, 64 steps of 16, and a profile of 2 steps (an
-# LSTM-only step is ~8,600 kernels, whose events the profiler is slow to
-# take in)
-SEQUENCE_MEASURE_WINDOWS = 1024
+# their device-cache epoch, 16 steps of 16 (cut from 64), and a
+# profile of 2 steps (an LSTM-only step is ~8,600 kernels, whose events
+# the profiler is slow to take in)
+SEQUENCE_MEASURE_WINDOWS = 256
 NESTED_ATOL = 1e-5  # real windows' logits, padded vs their own bucket
 NESTED_PATIENT = 20  # windows of a synthetic patient (400 breaths of S = 20)
 # one real-size step: a 24 h patient is ~1,440 windows of 20 breaths, its
@@ -2940,85 +3051,69 @@ REAL_SIZE_NETWORK = "cnn_to_nested_lstm"
 
 
 def phase_sequence(workdir, device="cuda"):
-    """Each sequence network (SEQUENCE_FLAGS) on the device, its DTW
-    launches counted from 0 just before it and read just after: one JSON
-    line a network.  Returns {network: launches}."""
-    import deepards_tpu_torch.ops.dtw as dtw_ops
-
-    launches, failed = {}, []
-    for name in SEQUENCE_FLAGS:
-        dtw_ops.launches = 0
-        fields, failures = sequence_path(workdir, name, device)
-        launches[name] = dtw_ops.launches
-        emit("sequence", network=name, **fields)
-        failed += failures
-    if failed:
-        raise AssertionError("sequence: " + "; ".join(failed))
-    return launches
+    """Each sequence network (SEQUENCE_FLAGS, ``sequence_path``)."""
+    return counted_phase("sequence", SEQUENCE_FLAGS, sequence_path, workdir,
+                         device)
 
 
 def sequence_path(workdir, name, device="cuda"):
-    """Network ``name`` trained through the CLI (every fold, one epoch), 3
-    float32 and float64 steps at full width held against the CPU, graphed
+    """Network ``name`` trained through the CLI (fold 0 of 5, one epoch),
+    3 float32 and float64 steps at full width held against the CPU, graphed
     steps held to eager ones, a trained checkpoint served and predicted,
     each held to the trainer; a nested network's padding held exact
     (``nested_padding``); on the card the bf16 graphed step timed (a
     nested network's at a synthetic patient's size, and REAL_SIZE_NETWORK
-    at a real patient's).  ``seconds`` times each stage on the host's
-    clock.  Returns (fields, failures)."""
-    seconds = {}
+    at a real patient's).  Returns (fields, failures) of ``run_stages``."""
+    fold = {}
 
-    def timed(stage, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        seconds[stage] = time.perf_counter() - t0
-        return out
+    def train(fields):
+        fold["trainer"], fold["dir"], fields["run"] = train_config(
+            workdir, device, name, 1, ["--only-fold", "0"], (0,))
+        fields["eval_logits_shape"] = list(
+            fold["trainer"].last_eval["logits"].shape)
 
-    trainer, models_dir, run = timed("train", train_config, workdir, device,
-                                     name, 1)
-    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
-              "flags": CONFIG_FLAGS[name], "run": run,
-              "eval_logits_shape": list(trainer.last_eval["logits"].shape),
-              "card_vs_cpu": timed("card_vs_cpu", train_card_vs_cpu, device,
-                                   name)}
-    fields["graph_vs_eager"], failed = timed(
-        "graph_vs_eager", graph_vs_eager, workdir, device, name)
-    failed = ["{} graphed vs eager: {}".format(name, f) for f in failed]
-    fields["train_to_serve"] = timed("serve", train_to_serve, trainer,
-                                     models_dir, device, name)
-    cohort_dir, cohort = config_cohort(workdir, trainer.conf)
-    fields["predict"] = timed(
-        "predict", predict_vs_eval, CONFIG_FLAGS[name] + [
+    def serve(fields):
+        fields["train_to_serve"] = train_to_serve(
+            fold["trainer"], fold["dir"], device, name, 0)
+
+    def predict(fields):
+        cohort_dir, cohort = config_cohort(workdir, fold["trainer"].conf)
+        fields["predict"] = predict_vs_eval(CONFIG_FLAGS[name] + [
             "--data-path", cohort_dir, "--cohort-file", cohort,
             "--only-fold", "0", "--device", device],
-        os.path.join(models_dir, name + "-fold0"),
-        os.path.join(workdir, name))
-    nested = trainer.spec.super_batch
-    if nested:
-        fields["padding"] = timed("padding", nested_padding, workdir, device,
-                                  name)
+            os.path.join(fold["dir"], name + "-fold0"),
+            os.path.join(workdir, name))
+
+    def padding(fields):
+        fields["padding"] = nested_padding(workdir, device, name)
         if fields["padding"]["max_abs"] > NESTED_ATOL:
-            failed.append("{} padded logits {}".format(
-                name, fields["padding"]["max_abs"]))
-    if device == "cuda":
-        if nested:
-            fields["numbers"] = timed("numbers", nested_numbers, workdir,
-                                      device, name)
+            return ["padded logits {}".format(fields["padding"]["max_abs"])]
+
+    def numbers(fields):
+        if name in NESTED_NETWORKS:
+            fields["numbers"] = nested_numbers(workdir, device, name)
         else:
-            fields["numbers"] = timed(
-                "numbers", train_numbers, workdir, device, name,
-                (("graphed", True),), SEQUENCE_MEASURE_WINDOWS,
-                # the profiler's cost goes with the kernels: ~8,600 an
-                # LSTM-only step
-                1 if name in LSTM_ONLY else 2)
+            # the profiler's cost goes with the kernels: ~8,600 an
+            # LSTM-only step, timed over 5 steps and one run of 20
+            fields["numbers"] = train_numbers(
+                workdir, device, name, (("graphed", True),),
+                SEQUENCE_MEASURE_WINDOWS,
+                **(dict(NEW_DEPTH["reps"], profile_reps=1)
+                   if name in LSTM_ONLY else dict(profile_reps=2)))
+
+    stages = [("train", train),
+              ("card_vs_cpu", check_card_vs_cpu(name, device)),
+              ("graph_vs_eager", check_graph_vs_eager(workdir, name, device,
+                                                      GRAPH_STEPS)),
+              ("serve", serve), ("predict", predict)]
+    if name in NESTED_NETWORKS:
+        stages.append(("padding", padding))
+    if device == "cuda":
+        stages.append(("numbers", numbers))
         if name == REAL_SIZE_NETWORK:
-            fields["real_size_step"] = timed("real_size", nested_real_size,
-                                             workdir, device, name)
-    fields["seconds"] = seconds
-    fields["phase_seconds"] = sum(seconds.values())
-    print("sequence {}: {} s {}".format(name, fields["phase_seconds"],
-                                        seconds), flush=True)
-    return fields, failed
+            stages.append(("real_size", lambda fields: fields.update(
+                real_size_step=nested_real_size(workdir, device, name))))
+    return run_stages(name, stages, device)
 
 
 def nested_padding(workdir, device, name):
@@ -4167,21 +4262,8 @@ def runner_log(log):
 
 
 def phase_two_d(workdir, device="cuda"):
-    """Each 2D network (TWO_D_FLAGS) on the device, its DTW launches
-    counted from 0 just before it and read just after: one JSON line a
-    network.  Returns {network: launches}."""
-    import deepards_tpu_torch.ops.dtw as dtw_ops
-
-    launches, failed = {}, []
-    for name in TWO_D_FLAGS:
-        dtw_ops.launches = 0
-        fields, failures = two_d_path(workdir, name, device)
-        launches[name] = dtw_ops.launches
-        emit("two_d", network=name, dtw_launches=launches[name], **fields)
-        failed += failures
-    if failed:
-        raise AssertionError("two_d: " + "; ".join(failed))
-    return launches
+    """Each 2D network (TWO_D_FLAGS, ``two_d_path``)."""
+    return counted_phase("two_d", TWO_D_FLAGS, two_d_path, workdir, device)
 
 
 def two_d_path(workdir, name, device="cuda"):
@@ -4192,76 +4274,71 @@ def two_d_path(workdir, name, device="cuda"):
     cnn_linear_2d's fold-0 checkpoint through ``cli.predict`` against the
     trainer's eval; 3 full-width steps held against the CPU (a ProtoPNet
     stage 1, and its push); graphed steps held to eager ones; on the card
-    the numbers.  Returns (fields, failures)."""
-    seconds = {}
+    the numbers.  Returns (fields, failures) of ``run_stages``."""
+    epochs, extra = {
+        "cnn_linear_2d": (2, ()), "cnn_linear_2d_fft": (1, ()),
+        "cnn_linear_2x1d": (1, ("--only-fold", "0")),
+        "protopnet_2d": (2, ("--only-fold", "0", *PPNET_2D_CUT)),
+        "retinanet_2d": (2, ("--only-fold", "0"))}[name]
+    fold = {}
 
-    def timed(stage, fn, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        seconds[stage] = time.perf_counter() - t0
-        return out
+    def train(fields):
+        fields["cut"] = ["--epochs", str(epochs), *extra]
+        log = []
+        with runner_log(log):
+            if name == "retinanet_2d":
+                trainer, fold["dir"], fields["run"] = train_detector(
+                    workdir, device, name, epochs, extra)
+            else:
+                trainer, fold["dir"], fields["run"] = train_config(
+                    workdir, device, name, epochs, list(extra),
+                    None if "--only-fold" not in extra else (0,))
+        fold["trainer"] = trainer
+        model = trainer.final_state.model
+        fields["run"].update({
+            "base_network": trainer.conf.base_network,
+            "input_channels": model.breath_block.conv0.in_channels,
+            "block_kernel": list(model.breath_block.block_kernel),
+            "runners_graphed": sum(g for g, _ in log), "runners": len(log)})
+        placed = {d for _, d in log} | {p.device.type
+                                        for p in model.parameters()}
+        if placed != {trainer.device.type} or (
+                device == "cuda" and not all(g for g, _ in log)):
+            raise AssertionError("runners {} on {}, asked for {}".format(
+                log, placed, device))
+        if trainer.spec.trainer == "protopnet":
+            fields["pushes"] = len(trainer.push_infos)
+            if len(trainer.push_infos) != 1 or any(
+                    i is None for i in trainer.push_infos[0]):
+                raise AssertionError("pushes: {}".format(
+                    trainer.push_infos))
 
-    cut = {"cnn_linear_2d": (2, ()), "cnn_linear_2d_fft": (1, ()),
-           "cnn_linear_2x1d": (1, ("--only-fold", "0")),
-           "protopnet_2d": (2, ("--only-fold", "0", *PPNET_2D_CUT)),
-           "retinanet_2d": (2, ("--only-fold", "0"))}[name]
-    epochs, extra = cut
-    log = []
-    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
-              "flags": CONFIG_FLAGS[name], "cut": ["--epochs", str(epochs),
-                                                   *extra]}
-    with runner_log(log):
-        if name == "retinanet_2d":
-            trainer, models_dir, fields["run"] = timed(
-                "train", train_detector, workdir, device, name, epochs,
-                extra)
-        else:
-            trainer, models_dir, fields["run"] = timed(
-                "train", train_config, workdir, device, name, epochs,
-                list(extra), None if "--only-fold" not in extra else (0,))
-    model = trainer.final_state.model
-    fields["run"].update({
-        "base_network": trainer.conf.base_network,
-        "input_channels": model.breath_block.conv0.in_channels,
-        "block_kernel": list(model.breath_block.block_kernel),
-        "runners_graphed": sum(g for g, _ in log), "runners": len(log)})
-    placed = {d for _, d in log} | {p.device.type for p in model.parameters()}
-    if placed != {trainer.device.type} or (
-            device == "cuda" and not all(g for g, _ in log)):
-        raise AssertionError("{}: runners {} on {}, asked for {}".format(
-            name, log, placed, device))
-    if trainer.spec.trainer == "protopnet":
-        fields["pushes"] = len(trainer.push_infos)
-        if len(trainer.push_infos) != 1 or any(
-                i is None for i in trainer.push_infos[0]):
-            raise AssertionError("{} pushes: {}".format(
-                name, trainer.push_infos))
-        fields["card_vs_cpu"] = timed("card_vs_cpu", ppnet_card_vs_cpu,
-                                      device, name)
-        fields["push_card_vs_cpu"] = timed(
-            "push_card_vs_cpu", push_card_vs_cpu, workdir, device, name)
-    elif name != "cnn_linear_2d_fft":
-        fields["card_vs_cpu"] = timed("card_vs_cpu", two_d_card_vs_cpu,
-                                      device, name)
-    if name == "cnn_linear_2d":
-        cohort_dir, cohort = config_cohort(workdir, trainer.conf)
-        fields["predict"] = timed(
-            "predict", predict_vs_eval, CONFIG_FLAGS[name] + [
-                "--data-path", cohort_dir, "--cohort-file", cohort,
-                "--only-fold", "0", "--device", device],
-            os.path.join(models_dir, name + "-fold0"),
+    def predict(fields):
+        cohort_dir, cohort = config_cohort(workdir, fold["trainer"].conf)
+        fields["predict"] = predict_vs_eval(CONFIG_FLAGS[name] + [
+            "--data-path", cohort_dir, "--cohort-file", cohort,
+            "--only-fold", "0", "--device", device],
+            os.path.join(fold["dir"], name + "-fold0"),
             os.path.join(workdir, name))
-    fields["graph_vs_eager"], failed = timed(
-        "graph_vs_eager", graph_vs_eager, workdir, device, name)
-    failed = ["{} graphed vs eager: {}".format(name, f) for f in failed]
+
+    stages = [("train", train)]
+    if name == "protopnet_2d":
+        stages += [("card_vs_cpu", lambda fields: fields.update(
+            card_vs_cpu=ppnet_card_vs_cpu(device, name))),
+                   ("push_card_vs_cpu", lambda fields: fields.update(
+                       push_card_vs_cpu=push_card_vs_cpu(workdir, device,
+                                                         name)))]
+    elif name != "cnn_linear_2d_fft":
+        stages.append(("card_vs_cpu", lambda fields: fields.update(
+            card_vs_cpu=two_d_card_vs_cpu(device, name))))
+    if name == "cnn_linear_2d":
+        stages.append(("predict", predict))
+    stages.append(("graph_vs_eager", check_graph_vs_eager(
+        workdir, name, device, GRAPH_STEPS)))
     if device == "cuda":
-        fields["numbers"] = timed("numbers", two_d_numbers, workdir, device,
-                                  name)
-    fields["seconds"] = seconds
-    fields["phase_seconds"] = sum(seconds.values())
-    print("two_d {}: {} s {}".format(name, fields["phase_seconds"], seconds),
-          flush=True)
-    return fields, failed
+        stages.append(("numbers", lambda fields: fields.update(
+            numbers=two_d_numbers(workdir, device, name))))
+    return run_stages(name, stages, device)
 
 
 def train_detector(workdir, device, name, epochs, extra):
@@ -4303,7 +4380,418 @@ def train_detector(workdir, device, name, epochs, extra):
                                        "test_loss")}}
 
 
-def main():
+# -- the siamese networks and the remaining backbones -------------------------
+
+# the depth of the siamese and backbones phases: the timed device-cache
+# epoch of a siamese network (16 steps of 16); a step's time the median of
+# 5, its back-to-back time one run of 20, its profile 2 steps; graphed vs
+# eager over 2 steps; the backbones' numbers over 64 windows an epoch, a
+# step's time the median of 3, no back-to-back run (senet154's step is
+# ~176 ms, device-bound); the senets built with one block a stage (their
+# blocks, groups, widths and stem) for card vs CPU, where the CPU's side
+# of the full depth would take minutes, and for the deep ones' graphed
+# vs eager, whose four runners at full depth took 7-20 s a network
+# (float32 with TF32 off, an H100 at 700 W); their numbers at full depth
+NEW_DEPTH = {
+    "measure_windows": 256,
+    "reps": dict(reps=5, b2b_reps=1, profile_reps=2),
+    "graph_steps": 2,
+    "backbone_numbers": dict(windows=64, reps=3, b2b_reps=0,
+                             profile_reps=2),
+    "one_block_a_stage": {
+        "card_vs_cpu": ("cnn_linear_senet154", "cnn_linear_se_resnet50",
+                        "cnn_linear_se_resnext50_32x4d"),
+        "graph_vs_eager": tuple("cnn_linear_" + base for base in (
+            "senet154", "se_resnet50", "se_resnet101", "se_resnet152",
+            "se_resnext50_32x4d", "se_resnext101_32x4d"))},
+}
+
+
+def run_stages(name, stages, device):
+    """Run ``stages`` ([(stage, fn)], each ``fn(fields)`` filling
+    ``fields`` and returning failures, or raising one) for network
+    ``name``, timing each on the host's clock; a stage that fails leaves
+    the next ones to run.  Returns (fields, failures)."""
+    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
+              "flags": CONFIG_FLAGS[name], "seconds": {}}
+    failed = []
+    for stage, fn in stages:
+        t0 = time.perf_counter()
+        try:
+            failures = fn(fields) or ()
+        except AssertionError as e:
+            failures = [str(e)]
+        failed += ["{} {}: {}".format(name, stage, f) for f in failures]
+        fields["seconds"][stage] = time.perf_counter() - t0
+    fields["phase_seconds"] = sum(fields["seconds"].values())
+    print("{}: {} s {}".format(name, fields["phase_seconds"],
+                               fields["seconds"]), flush=True)
+    return fields, failed
+
+
+def counted_phase(phase, names, path, workdir, device):
+    """``path(workdir, name, device)`` for each of ``names``, its DTW
+    launches counted from 0 just before it and read just after: one JSON
+    line a network.  Returns {network: launches}."""
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+
+    launches, failed = {}, []
+    for name in names:
+        dtw_ops.launches = 0
+        fields, failures = path(workdir, name, device)
+        launches[name] = dtw_ops.launches
+        emit(phase, network=name, dtw_launches=launches[name], **fields)
+        failed += failures
+    if failed:
+        raise AssertionError("{}: {}".format(phase, "; ".join(failed)))
+    return launches
+
+
+def check_card_vs_cpu(name, device):
+    def stage(fields):
+        fields["card_vs_cpu"] = train_card_vs_cpu(device, name)
+    return stage
+
+
+def check_graph_vs_eager(workdir, name, device,
+                         steps=NEW_DEPTH["graph_steps"]):
+    def stage(fields):
+        fields["graph_vs_eager"], failed = graph_vs_eager(
+            workdir, device, name, steps)
+        return failed
+    return stage
+
+
+def phase_siamese(workdir, device="cuda"):
+    """The three twin networks, then siamese_pretrained with each time
+    layer from siamese_cnn_linear's checkpoint (``siamese_path``)."""
+    return counted_phase("siamese", SIAMESE_FLAGS, siamese_path, workdir,
+                         device)
+
+
+def siamese_path(workdir, name, device="cuda"):
+    """A twin network trained through the CLI (1 epoch over the ``main``
+    holdout, ``--save-model``), its triplets checked (``triplet_check``),
+    3 steps held against the CPU, graphed steps held to eager ones, and on
+    the card the numbers.  siamese_pretrained: trained through the CLI
+    (fold 0, 1 epoch) from siamese_cnn_linear's checkpoint
+    (``--load-base-network``), held against the CPU, graphed against
+    eager, its checkpoint served and predicted against the trainer."""
+    pretrained = name.startswith("siamese_pretrained")
+    models = {}
+
+    def train(fields):
+        extra = []
+        if pretrained:
+            extra = ["--load-base-network", os.path.join(
+                workdir, "siamese_cnn_linear_models", "siamese_cnn_linear"),
+                "--only-fold", "0"]
+        trainer, models["dir"], fields["run"] = train_config(
+            workdir, device, name, 1, extra, folds=(0,))
+        models["trainer"] = trainer
+        fields["run"]["cut"] = extra[2:]
+        if not pretrained:
+            fields["run"]["test_loss"] = trainer.results.get_meter(
+                "test_loss", 0).values
+
+    stages = [("train", train)]
+    if not pretrained:
+        stages.append(("triplets", lambda fields: fields.update(
+            triplets=triplet_check(workdir, name))))
+    stages += [("card_vs_cpu", check_card_vs_cpu(name, device)),
+               ("graph_vs_eager", check_graph_vs_eager(workdir, name,
+                                                       device))]
+    if pretrained:
+        def serve(fields):
+            fields["train_to_serve"] = train_to_serve(
+                models["trainer"], models["dir"], device, name, fold=0)
+
+        def predict(fields):
+            cohort_dir, cohort = config_cohort(workdir,
+                                               models["trainer"].conf)
+            fields["predict"] = predict_vs_eval(
+                CONFIG_FLAGS[name] + [
+                    "--data-path", cohort_dir, "--cohort-file", cohort,
+                    "--only-fold", "0", "--device", device],
+                os.path.join(models["dir"], name + "-fold0"),
+                os.path.join(workdir, name))
+
+        stages += [("serve", serve), ("predict", predict)]
+    elif device == "cuda":
+        stages.append(("numbers", lambda fields: fields.update(
+            numbers=siamese_numbers(workdir, device, name))))
+    return run_stages(name, stages, device)
+
+
+def triplet_check(workdir, name):
+    """An epoch's train triplets of the siamese dataset over the phase's
+    cohort: each positive a later window of its anchor's patient, the
+    first after it, and each negative another patient's window.  Planted:
+    a negative drawn from the anchor's own patient must fail it."""
+    from deepards_tpu_torch.data.siamese_dataset import SiameseWindowDataset
+
+    conf = config_conf(name)
+    cohort_dir, cohort = config_cohort(workdir, conf)
+    ds = SiameseWindowDataset(cohort_dir, 1, conf.n_sub_batches,
+                              conf.dataset_type, cohort, train=True,
+                              seed=conf.get("seed") or 42)
+    patient = ds.base.cache.patient_idx.tolist()
+    # each window's next window of its patient in the cache, from the end
+    following, last = {}, {}
+    for j in range(len(patient) - 1, -1, -1):
+        following[j] = last.get(patient[j])
+        last[patient[j]] = j
+    anchor, positive, negative = ds.sample_triplet_indices(
+        np.arange(len(ds)))
+
+    def violations(neg):
+        return sum(following[a] != p for a, p in zip(anchor.tolist(),
+                                                    positive.tolist())) + \
+            sum(patient[n] == patient[a] for a, n in zip(anchor.tolist(),
+                                                          neg.tolist()))
+
+    planted = negative.copy()
+    planted[0] = positive[0]
+    fields = {"triplets": len(anchor),
+              "patients": len({patient[a] for a in anchor.tolist()}),
+              "violations": violations(negative),
+              "planted": "a negative from the anchor's own patient",
+              "planted_violations": violations(planted)}
+    if fields["violations"] or not fields["planted_violations"]:
+        raise AssertionError("{} triplets: {}".format(name, fields))
+    return fields
+
+
+def siamese_fold(name, workdir, device, graphs, dtype, dropout):
+    """A ``SiameseTrainer`` of ``name``'s flags with fold 0's state built
+    without a cohort, and a ``StepRunner`` of its steps over unit scaling:
+    CUDA-graph replays with ``graphs`` on the card, else eager."""
+    import torch
+
+    from deepards_tpu_torch.data.pipeline import transform_batch
+    from deepards_tpu_torch.train.siamese_trainer import (
+        SiameseTrainer,
+        make_siamese_steps,
+    )
+    from deepards_tpu_torch.train.steps import StepRunner
+
+    conf = config_conf(name, "--device", device, "--results-dir",
+                       os.path.join(workdir, "measure"), "--compute-dtype",
+                       dtype)
+    trainer = SiameseTrainer(conf, verbose=False)
+    trainer.n_sub_batches = conf.n_sub_batches
+    state = trainer.new_state(0)
+    zero = torch.zeros(1, device=trainer.device)
+    one = torch.ones(1, device=trainer.device)
+    train_step, eval_step = make_siamese_steps(
+        lambda d: transform_batch(d, zero, one), trainer.compute_dtype,
+        dropout)
+    shape = (conf.batch_size, conf.n_sub_batches, C, L)
+    extra = {key: torch.zeros(shape, device=trainer.device)
+             for key in ("positive", "negative")}
+    runner = StepRunner(state, train_step, eval_step, shape,
+                        graphed=graphs and trainer.device.type == "cuda",
+                        extra_inputs=extra)
+    return trainer, runner
+
+
+def random_triplets(rng, n, conf):
+    """A stand-in for a siamese dataset over ``n`` random windows, and n
+    triplets of random indices into it."""
+    from types import SimpleNamespace
+
+    ds = random_cache(rng, n, conf)
+    ds.cache.data[:] = make_windows(rng, n, conf.n_sub_batches)
+    return (SimpleNamespace(base=ds),
+            tuple(rng.integers(0, n, size=n) for _ in range(3)))
+
+
+def siamese_graph_run(workdir, device, name, rng, steps=GRAPH_STEPS):
+    """``run(graphs, dtype, dropout)`` for ``graph_vs_eager``: ``steps``
+    train steps of random triplets from fold 0's state, then an eval pass
+    over the same triplets; (losses, state, eval outputs)."""
+    conf = config_conf(name)
+    view, triplets = random_triplets(rng, steps * conf.batch_size, conf)
+
+    def run(graphs, dtype, dropout):
+        trainer, runner = siamese_fold(name, workdir, device, graphs, dtype,
+                                       dropout)
+        losses, _ = trainer.triplet_steps(runner, view, triplets, True)
+        _, outs = trainer.triplet_steps(runner, view, triplets, False)
+        return losses, runner.state, outs
+
+    return run
+
+
+def siamese_numbers(workdir, device, name):
+    """The bf16 graphed train and eval steps (dropout on) of a siamese
+    network, and an epoch of NEW_DEPTH["measure_windows"] random triplets
+    gathered
+    on the card: windows/s counts anchors (each with its positive and its
+    negative).  The build time and the peak memory cover the fold's state
+    and the runner (warm-up, captures)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer, runner = siamese_fold(name, workdir, device, True, "bfloat16",
+                                   True)
+    torch.cuda.synchronize()
+    build_seconds = time.perf_counter() - t0
+    conf = trainer.conf
+    view, triplets = random_triplets(np.random.default_rng(SEED + 3),
+                                     NEW_DEPTH["measure_windows"], conf)
+    trainer.triplet_steps(runner, view, tuple(t[:conf.batch_size]
+                                              for t in triplets), True)
+    out = {"batch": conf.batch_size, "compute_dtype": "bfloat16",
+           "step": step_profile(runner.train, **NEW_DEPTH["reps"]),
+           "eval": step_profile(runner.eval, **NEW_DEPTH["reps"])}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.triplet_steps(runner, view, triplets, True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    windows = NEW_DEPTH["measure_windows"]
+    out.update(epoch_windows=windows, epoch_seconds=seconds,
+               windows_per_s=windows / seconds,
+               runner_build_seconds=build_seconds,
+               peak_memory_bytes=torch.cuda.max_memory_allocated()
+               - baseline)
+    print("numbers {}: {} ms a step, {} ms on the device, {} kernels, "
+          "{} windows/s".format(name, out["step"]["ms"],
+                                out["step"]["device_ms"],
+                                out["step"]["launches"],
+                                out["windows_per_s"]), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def one_block_a_stage(name, stage):
+    """Within the scope, the senet of network ``name`` is built with one
+    block a stage where NEW_DEPTH cuts ``stage`` so (no change else).
+    Yields the blocks a stage, or None."""
+    from deepards_tpu_torch.models import registry, senet1d
+
+    if name not in NEW_DEPTH["one_block_a_stage"][stage]:
+        yield None
+        return
+    flags = CONFIG_FLAGS[name]
+    base = flags[flags.index("--base-network") + 1]
+    full = registry.BASE_NETWORKS[base]
+    # the constructor is a partial of SENet1D: its blocks a stage second
+    ctor = getattr(senet1d, base)
+    blocks = (1, 1, 1, 1)
+    registry.BASE_NETWORKS[base] = lambda conf, c: senet1d.SENet1D(
+        ctor.args[0], blocks, *ctor.args[2:], in_channels=c,
+        **ctor.keywords)
+    try:
+        yield blocks
+    finally:
+        registry.BASE_NETWORKS[base] = full
+
+
+def phase_backbones(workdir, device="cuda"):
+    """Each name of BACKBONE_FLAGS (``backbone_path``)."""
+    return counted_phase("backbones", BACKBONE_FLAGS, backbone_path,
+                         workdir, device)
+
+
+def backbone_path(workdir, name, device="cuda"):
+    """A network of BACKBONE_FLAGS: the names of BACKBONE_BY_BLOCK trained
+    through the CLI (fold 0, 1 epoch; ProtoPNet over vgg11_bn through one
+    stage and a push), every step a graph replay on the card, and the
+    ones of them under cnn_linear and the autoencoder held against the
+    CPU for 3 steps; every name's graphed steps held to eager ones; on
+    the card the numbers of the bf16 graphed step."""
+    ppnet = name == "protopnet_vgg11_bn"
+
+    def train(fields):
+        cut = PPNET_VGG_CUT if ppnet else []
+        trainer, _, fields["run"] = train_config(
+            workdir, device, name, 1, ["--only-fold", "0"] + cut, folds=(0,))
+        fields["run"]["cut"] = ["--only-fold", "0"] + cut
+        model = trainer.final_state.model
+        fields["run"]["params"] = sum(p.numel() for p in model.parameters())
+        if ppnet:
+            pushes = trainer.push_infos
+            fields["run"]["pushes"] = len(pushes)
+            if len(pushes) != 1 or any(i is None for i in pushes[0]):
+                return ["pushes {}".format(pushes)]
+
+    def graphs(fields):
+        if not ppnet:
+            with one_block_a_stage(name, "graph_vs_eager") as blocks:
+                failed = check_graph_vs_eager(workdir, name, device)(fields)
+            fields["graph_vs_eager"]["blocks_a_stage"] = blocks
+            return failed
+        fields["graph_vs_eager"], failed, runners = ppnet_graph_vs_eager(
+            workdir, device, name)
+        if device == "cuda":
+            fields["numbers"] = {
+                "batch": BATCH, "compute_dtype": "bfloat16",
+                **{stage: step_profile(runner.train, **NEW_DEPTH["reps"])
+                   for stage, runner in runners.items()}}
+        return failed
+
+    def card_vs_cpu(fields):
+        with one_block_a_stage(name, "card_vs_cpu") as blocks:
+            check_card_vs_cpu(name, device)(fields)
+        fields["card_vs_cpu"]["blocks_a_stage"] = blocks
+
+    stages = []
+    if name in BACKBONE_BY_BLOCK:
+        stages.append(("train", train))
+        if not ppnet:
+            stages.append(("card_vs_cpu", card_vs_cpu))
+    stages.append(("graph_vs_eager", graphs))
+    if device == "cuda" and not ppnet:
+        stages.append(("numbers", lambda fields: fields.update(
+            numbers=train_numbers(workdir, device, name,
+                                  (("graphed", True),),
+                                  **NEW_DEPTH["backbone_numbers"]))))
+    return run_stages(name, stages, device)
+
+
+# the phases in the order of a whole run (``serve`` is the main path:
+# the server, then DTW of its breaths), and the phases each reads the
+# checkpoints or cohort of
+PHASES = ("serve", "train", "graph_vs_eager", "config1_surface", "config2",
+          "config3", "config4", "config4_unshuffled", "config7", "config5",
+          "explain", "sequence", "two_d", "siamese", "backbones",
+          "dtw_similarity", "hetero")
+PHASE_NEEDS = {"config1_surface": ("train",), "explain": ("train", "config5")}
+
+
+def parse_phases(argv=None):
+    """The phases ``--phases a,b`` names, in a whole run's order (all of
+    them without it); a phase whose needs are not named is refused."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Smoke run of deepards_tpu_torch on one card.")
+    parser.add_argument(
+        "--phases", help="comma-separated phases to run after env, build "
+        "and the kernel check (default: all): " + ", ".join(PHASES))
+    args = parser.parse_args(argv)
+    if not args.phases:
+        return PHASES
+    chosen = {p.strip() for p in args.phases.split(",") if p.strip()}
+    unknown = sorted(chosen - set(PHASES))
+    if unknown:
+        parser.error("unknown phases: {}".format(", ".join(unknown)))
+    for phase in sorted(chosen):
+        missing = [p for p in PHASE_NEEDS.get(phase, ()) if p not in chosen]
+        if missing:
+            parser.error("{} reads the checkpoints of {}: add {} to "
+                         "--phases".format(phase, ", ".join(
+                             PHASE_NEEDS[phase]), ", ".join(missing)))
+    return tuple(p for p in PHASES if p in chosen)
+
+
+def main(argv=None):
+    phases = parse_phases(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -4323,57 +4811,71 @@ def main():
         seconds[phase] = seconds.get(phase, 0.0) + time.perf_counter() - t0
         return out
 
+    def counted(phase, fn, *args, **kwargs):
+        """A path's DTW launches: the count from 0 just before it, read
+        just after."""
+        dtw_ops.launches = 0
+        timed(phase, fn, *args, **kwargs)
+        return dtw_ops.launches
+
     smi = timed("env", phase_env)
     timed("build", phase_build)
     dtw_stats = timed("kernel", phase_kernel)
-
-    # the main path: counts from 0 just before it, read just after
-    dtw_ops.launches = 0
     BUILD_DIR.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        windows = timed("serve", phase_serve, work)
-    timed("dtw_served", phase_dtw_served, windows)
-    launches = dtw_ops.launches
-    if launches == 0:
-        raise AssertionError("the main path never launched the dtw kernel")
 
-    # the training paths run no hand-written kernel: each one's counts from
-    # 0 just before it, read just after, and required to stay 0
-    by_path = {"serve": launches}
-    dtw_ops.launches = 0
+    # the main path
+    by_path = {}
+    if "serve" in phases:
+        dtw_ops.launches = 0
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            windows = timed("serve", phase_serve, work)
+        timed("dtw_served", phase_dtw_served, windows)
+        by_path["serve"] = dtw_ops.launches
+        if by_path["serve"] == 0:
+            raise AssertionError("the main path never launched the dtw "
+                                 "kernel")
+
+    # the training paths run no hand-written kernel: each one's count
+    # required to stay 0
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        timed("train", phase_train, work, smi)
-        timed("graph_vs_eager", phase_graph_vs_eager, work)
-        timed("config1_surface", phase_config1_surface, work)
-        by_path["config1"] = dtw_ops.launches
+        for phase, fn in (
+                ("train", lambda: phase_train(work, smi)),
+                ("graph_vs_eager", lambda: phase_graph_vs_eager(work)),
+                ("config1_surface", lambda: phase_config1_surface(work))):
+            if phase in phases:
+                by_path["config1"] = by_path.get("config1", 0) + counted(
+                    phase, fn)
         for name in ("config2", "config3", "config4"):
-            dtw_ops.launches = 0
-            timed(name, phase_config, work, name)
-            by_path[name] = dtw_ops.launches
+            if name in phases:
+                by_path[name] = counted(name, phase_config, work, name)
         for name, phase in (("config4_unshuffled", phase_config4_unshuffled),
                             ("config7", phase_config7),
                             ("config5", phase_config5)):
-            dtw_ops.launches = 0
-            timed(name, phase, work)
-            by_path[name] = dtw_ops.launches
-        # the explain CLIs over config 1's and config 5's fold-0
-        # checkpoints: the count from 0 just before dtw_clust (inside the
-        # phase), read just after
-        by_path["explain"] = timed(
-            "explain", phase_explain, work,
-            cam_checkpoint=os.path.join(work, "config1_models",
-                                        "config1-fold0"),
-            ppnet_checkpoint=os.path.join(work, "config5_models",
-                                          "config5-fold0"),
-            per_cell=dtw_stats["fp32_per_cell"])
-        if not by_path["explain"]:
-            raise AssertionError("the explain path never launched the dtw "
-                                 "kernel")
-        # the sequence networks, then the 2D networks: each one's count
-        # from 0 just before it (inside the phase), read just after
-        by_path.update(timed("sequence", phase_sequence, work))
-        by_path.update(timed("two_d", phase_two_d, work))
-    training = {name: by_path[name] for name in CONFIG_FLAGS}
+            if name in phases:
+                by_path[name] = counted(name, phase, work)
+        if "explain" in phases:
+            # over config 1's and config 5's fold-0 checkpoints: the count
+            # from 0 just before dtw_clust (inside the phase)
+            by_path["explain"] = timed(
+                "explain", phase_explain, work,
+                cam_checkpoint=os.path.join(work, "config1_models",
+                                            "config1-fold0"),
+                ppnet_checkpoint=os.path.join(work, "config5_models",
+                                              "config5-fold0"),
+                per_cell=dtw_stats["fp32_per_cell"])
+            if not by_path["explain"]:
+                raise AssertionError("the explain path never launched the "
+                                     "dtw kernel")
+        # a line a network: each one's count from 0 just before it
+        # (inside the phase), read just after
+        for phase, fn in (("sequence", phase_sequence),
+                          ("two_d", phase_two_d),
+                          ("siamese", phase_siamese),
+                          ("backbones", phase_backbones)):
+            if phase in phases:
+                by_path.update(timed(phase, fn, work))
+    training = {name: n for name, n in by_path.items()
+                if name in CONFIG_FLAGS}
     emit("train_path_kernel_launches", dtw=training)
     if any(training.values()):
         raise AssertionError("a training path launched the dtw kernel: {}"
@@ -4383,15 +4885,19 @@ def main():
     # it (inside the phase, whose checks launch the kernel too), the CLI
     # chain's just before it, each read just after
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        by_path["dtw_similarity"] = timed(
-            "dtw_similarity", phase_dtw_similarity, work,
-            per_cell=dtw_stats["fp32_per_cell"]["strip"])
-        dtw_ops.launches = 0
-        by_path["hetero"] = timed("hetero", phase_hetero, work)
-        if dtw_ops.launches != by_path["hetero"]:
-            raise AssertionError("hetero launches: {} counted, {} by step"
-                                 .format(dtw_ops.launches, by_path["hetero"]))
-    emit("phase_seconds", total=time.perf_counter() - began, **seconds)
+        if "dtw_similarity" in phases:
+            by_path["dtw_similarity"] = timed(
+                "dtw_similarity", phase_dtw_similarity, work,
+                per_cell=dtw_stats["fp32_per_cell"]["strip"])
+        if "hetero" in phases:
+            dtw_ops.launches = 0
+            by_path["hetero"] = timed("hetero", phase_hetero, work)
+            if dtw_ops.launches != by_path["hetero"]:
+                raise AssertionError(
+                    "hetero launches: {} counted, {} by step".format(
+                        dtw_ops.launches, by_path["hetero"]))
+    emit("phase_seconds", total=time.perf_counter() - began,
+         phases=list(phases), **seconds)
 
     print(json.dumps({"kernels": [{
         "name": "dtw",

@@ -59,16 +59,17 @@ class InferenceEngine:
     def __init__(self, checkpoint, network="cnn_linear",
                  base_network="densenet18", n_sub_batches=20,
                  batch_size=16, scaling=None, bn_scope="sequence",
-                 device=None):
+                 device=None, siamese_time_layer="none"):
         self.device = resolve_device(device)
         # bn_scope='sequence' by default: pad rows of a partial chunk
         # would otherwise share normalization statistics with real
         # windows, and a request would score differently by its size.
         # The parameters do not depend on the scope.
-        # the registry's other keys (initial_planes, hidden units) at their
-        # defaults, as the JAX server builds its networks
+        # the registry's other keys (initial_planes, hidden units) at
+        # their defaults, as the JAX server builds its networks
         conf = {"base_network": base_network, "network": network,
-                "bn_scope": bn_scope}
+                "bn_scope": bn_scope,
+                "siamese_time_layer": siamese_time_layer}
         spec = get_network_spec(network)
         if spec.two_dim:
             # requests are windows (S, C, L), as the JAX server's, which
@@ -274,6 +275,9 @@ def main(argv=None):
     parser.add_argument("--network", default="cnn_linear")
     parser.add_argument("--base-network", default="densenet18")
     parser.add_argument("--n-sub-batches", type=int, default=20)
+    parser.add_argument("--siamese-time-layer", default="none",
+                        choices=("none", "lstm", "transformer"),
+                        help="siamese_pretrained's time layer")
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8476)
@@ -309,6 +313,7 @@ def main(argv=None):
         base_network=args.base_network,
         n_sub_batches=args.n_sub_batches, batch_size=args.batch_size,
         scaling=scaling, bn_scope=args.bn_scope, device=args.device,
+        siamese_time_layer=args.siamese_time_layer,
     )
     engine.warm()
     server = serve(engine, args.host, args.port)

@@ -86,7 +86,14 @@ def build_parser():
     parser.add_argument("--time-series-hidden-units", type=int)
     parser.add_argument("--transformer-blocks", type=int)
     flag("--unshuffled")
-    parser.add_argument("--load-siamese")
+    parser.add_argument("--load-siamese",
+                        help="refused: read by nothing in either package; "
+                        "--load-base-network splices a siamese checkpoint's "
+                        "breath_block into siamese_pretrained")
+    parser.add_argument("--siamese-time-layer",
+                        choices=["none", "lstm", "transformer"],
+                        help="siamese_pretrained's layer over the windows "
+                        "(the configuration key siamese_time_layer)")
     parser.add_argument("--fl-gamma", type=float)
     parser.add_argument("--fl-alpha", type=float)
     flag("--oversample-minority")

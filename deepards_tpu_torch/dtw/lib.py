@@ -115,18 +115,13 @@ def _pad_pairs(seqs_a, seqs_b, width_bucket=64, batch_bucket=True):
             padded_bsz *= 2
 
     def fill(seqs):
+        # a slice copy a row: no index arrays of every element
         dst = np.zeros((padded_bsz, n), np.float32)
         lens = np.ones(padded_bsz, np.int32)
-        if bsz:
-            ls = np.fromiter((len(s) for s in seqs), np.int64, count=bsz)
-            lens[:bsz] = ls
-            # vectorized ragged scatter: row r gets seqs[r][:ls[r]]
-            rows = np.repeat(np.arange(bsz), ls)
-            starts = np.cumsum(ls) - ls
-            cols = np.arange(ls.sum()) - np.repeat(starts, ls)
-            dst[rows, cols] = np.concatenate(
-                [np.asarray(s, np.float32).ravel() for s in seqs]
-            )
+        for r, s in enumerate(seqs):
+            s = np.asarray(s, np.float32).ravel()
+            dst[r, :len(s)] = s
+            lens[r] = len(s)
         return dst, lens
 
     a, la = fill(seqs_a)

@@ -9,18 +9,28 @@ Dense, as the JAX heads do; with 0 it ignores metadata.
 import torch
 from torch import nn
 
-from deepards_tpu_torch.models.layers import dense_init, promoted_linear
+from deepards_tpu_torch.models.layers import (
+    SharedDraws,
+    dense_init,
+    promoted_linear,
+)
 
 
-def _window_features(breath_block, x, bn_scope, deterministic, generator):
+def _window_features(breath_block, x, bn_scope, deterministic, generator,
+                     copies=1):
     """(B, S, C, L) -> (B, S, F) window features.
 
     bn_scope='batch': normalization statistics span all B*S windows.
     bn_scope='sequence': each sample's S windows have statistics of their
     own, as one grouped reduction over the same (B*S)-row backbone call.
+    ``copies`` > 1: the B samples are that many equal stacks, each
+    normalized over its own rows and dropped out with the same masks, as
+    separate calls from one generator state would (``SharedDraws``).
     """
     b, s, c, length = x.shape
-    groups = b if bn_scope == "sequence" else 1
+    groups = b if bn_scope == "sequence" else copies
+    if copies > 1 and generator is not None:
+        generator = SharedDraws(generator, copies)
     feats = breath_block(
         x.reshape(b * s, c, length), deterministic, generator, groups)
     return feats.reshape(b, s, -1)
@@ -203,3 +213,24 @@ class MetadataOnlyNetwork(nn.Module):
         for layer in self.layers:
             h = promoted_linear(h, layer)
         return h
+
+
+class AutoencoderNetwork(nn.Module):
+    """Reconstruction network: the full ``AutoencoderCNN`` over each
+    window, (B, S, C, L) -> (B, S, C, L); its loss compares the output
+    with the normalized input (reference: models/autoencoder_network.py:
+    4-16)."""
+
+    def __init__(self, breath_block):
+        super().__init__()
+        self.breath_block = breath_block
+
+    def reset_parameters(self, generator=None):
+        self.breath_block.reset_parameters(generator)
+        return self
+
+    def forward(self, x, deterministic=False, generator=None, metadata=None):
+        b, s, c, length = x.shape
+        out = self.breath_block(x.reshape(b * s, c, length), deterministic,
+                                generator)
+        return out.reshape(b, s, c, length)

@@ -15,6 +15,7 @@ Counterpart of ``deepards_tpu/models/layers.py``.  Conventions:
 import contextlib
 import contextvars
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -99,12 +100,28 @@ def dense_init(linear, generator=None):
     return linear
 
 
+class SharedDraws(NamedTuple):
+    """A dropout generator for ``copies`` equal stacks of rows: ``dropout``
+    draws the mask of the first stack and repeats it for the others, so
+    each stack sees the masks one call of its own would draw from the same
+    generator state (the siamese towers' shared dropout key)."""
+
+    generator: torch.Generator
+    copies: int
+
+
 def dropout(h, rate, generator):
     """Inverted dropout drawn from ``generator`` (which must live on
-    ``h``'s device): keep with probability 1-rate, scale kept values."""
+    ``h``'s device, or be ``SharedDraws`` of one): keep with probability
+    1-rate, scale kept values."""
+    copies = 1
+    if isinstance(generator, SharedDraws):
+        generator, copies = generator
     keep_prob = 1.0 - rate
-    keep = torch.rand(
-        h.shape, generator=generator, device=h.device) < keep_prob
+    shape = (h.shape[0] // copies,) + tuple(h.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=h.device) < keep_prob
+    if copies > 1:
+        keep = keep.repeat((copies,) + (1,) * (h.ndim - 1))
     return torch.where(keep, h / keep_prob, torch.zeros_like(h))
 
 

@@ -85,11 +85,15 @@ class AddOnLayers(nn.Module):
     pairs: ReLU between, ReLU after a pair above the prototype depth and a
     sigmoid after the last (reference: model.py:158-185)."""
 
-    def __init__(self, in_channels, proto_channels):
+    def __init__(self, in_channels, proto_channels, fmap_channels=None):
         super().__init__()
         self.convs = nn.ModuleList()
         self.relu_after = []  # per pair: ReLU, else the closing sigmoid
-        current_in, width, first = in_channels, in_channels, True
+        # the widths halve from the backbone's n_out_filters, while the
+        # first conv reads the map's own channels where they differ (VGG:
+        # 512 * 7 and 512), as flax sizes a Conv from its input
+        current_in, first = in_channels, True
+        width = fmap_channels or in_channels
         while current_in > proto_channels or first:
             first = False
             current_out = max(proto_channels, current_in // 2)
@@ -142,8 +146,9 @@ class PPNet(nn.Module):
         self.average_linear = average_linear
         self.epsilon = epsilon
         self.prototype_vectors = nn.Parameter(torch.rand(self.prototype_shape))
-        self.add_on_layers = AddOnLayers(breath_block.n_out_filters,
-                                         proto_channels)
+        self.add_on_layers = AddOnLayers(
+            breath_block.n_out_filters, proto_channels,
+            getattr(breath_block, "fmap_channels", None))
         ident_rows = num_prototypes * (1 if average_linear
                                        else sub_batch_size)
         self.last_layer = nn.Linear(ident_rows, num_classes, bias=False)

@@ -1,22 +1,28 @@
 """Network registries: base backbones and composite-network specs.
 
-Counterpart of ``deepards_tpu/models/registry.py``, holding the entries
-the port has so far: the densenet and resnet backbones, the 1D heads
-(``cnn_linear`` and its variants, ``cnn_regressor``, ``metadata_only``),
-the recurrent and transformer networks (``cnn_lstm``,
-``cnn_lstm_double_linear``, ``lstm_only``, ``lstm_only_with_packing``,
-``double_lstm``, ``cnn_transformer``), the nested whole-patient networks,
-``protopnet``, and the 2D networks over breath images (the densenet 2D
-and 2x1d backbones, ``cnn_linear_2d``/``_2x1d``, ``protopnet_2d`` and the
-row-band detectors).  The JAX package's other entries raise
-``NotImplementedError``.  ``conf`` is a mapping of
-configuration keys (``base_network``, ``bn_scope``, ``initial_planes``,
-...).
+Counterpart of ``deepards_tpu/models/registry.py``, with every entry of
+the JAX package's two registries: the densenet, resnet, vgg, senet, unet
+and autoencoder-encoder backbones (1D) and the densenet 2D and 2x1d
+backbones; the 1D heads (``cnn_linear`` and its variants,
+``cnn_regressor``, ``metadata_only``, ``autoencoder``), the recurrent and
+transformer networks, the nested whole-patient networks, ``protopnet``,
+the siamese networks and ``siamese_pretrained``, and the 2D networks over
+breath images (``cnn_linear_2d``/``_2x1d``, ``protopnet_2d`` and the
+row-band detectors).  ``conf`` is a mapping of configuration keys
+(``base_network``, ``bn_scope``, ``initial_planes``, ...).
+
+Where the JAX package's entry cannot be built the port refuses it by
+name: ``autoencoder`` reconstructs its input with the full
+``AutoencoderCNN``, so it is built over ``basic_cnn_ae`` only (the JAX
+registry gives it the encoder, whose output cannot take the input's
+shape), and ``protopnet`` needs a backbone with ``conv_info`` (a senet
+raises, as the JAX one does).
 """
 from dataclasses import dataclass
 from typing import Callable
 
 from deepards_tpu_torch.models import (
+    autoencoder_cnn,
     densenet1d,
     densenet2d,
     detection2d,
@@ -26,6 +32,10 @@ from deepards_tpu_torch.models import (
     protopnet2d,
     recurrent,
     resnet1d,
+    senet1d,
+    siamese,
+    unet1d,
+    vgg1d,
 )
 
 
@@ -69,33 +79,32 @@ BASE_NETWORKS.update({
     for name in ("densenet18_2d", "densenet121_2d", "densenet18_2x1d")
 })
 
-# the JAX package's entries that the port does not have yet, and what they
-# are (ROADMAP.md, Queue 1)
-NOT_PORTED = {
-    **dict.fromkeys(
-        ("vgg11", "vgg11_bn", "vgg13", "vgg13_bn", "senet18", "senet154",
-         "se_resnet18", "se_resnet50", "se_resnet101", "se_resnet152",
-         "se_resnext50_32x4d", "se_resnext101_32x4d", "unet", "basic_cnn_ae"),
-        "base network"),
-    **dict.fromkeys(("autoencoder", "siamese_pretrained"), "head"),
-    **dict.fromkeys(
-        ("siamese_cnn_linear", "siamese_cnn_lstm",
-         "siamese_cnn_transformer"), "network of the siamese trainer"),
-}
 
 
-def _not_ported(name):
-    return NotImplementedError(
-        "{} ({}) is not ported to deepards_tpu_torch yet".format(
-            name, NOT_PORTED[name]))
+def _plain_ctor(module, name):
+    return lambda conf, in_channels: getattr(module, name)(
+        in_channels=in_channels)
+
+
+BASE_NETWORKS.update({
+    name: _plain_ctor(vgg1d, name)
+    for name in ("vgg11", "vgg11_bn", "vgg13", "vgg13_bn")
+})
+BASE_NETWORKS.update({
+    name: _plain_ctor(senet1d, name)
+    for name in ("senet18", "senet154", "se_resnet18", "se_resnet50",
+                 "se_resnet101", "se_resnet152", "se_resnext50_32x4d",
+                 "se_resnext101_32x4d")
+})
+BASE_NETWORKS["unet"] = _plain_ctor(unet1d, "UNet1DEncoder")
+BASE_NETWORKS["basic_cnn_ae"] = _plain_ctor(autoencoder_cnn,
+                                            "AutoencoderCNNEncoder")
 
 
 def get_base_network(conf, in_channels=1):
     """The backbone ``conf`` names, over ``in_channels`` input channels
     (the window cache's C)."""
     name = conf["base_network"]
-    if name in NOT_PORTED:
-        raise _not_ported(name)
     if name not in BASE_NETWORKS:
         raise ValueError(
             "unknown base network: {} (have: {})".format(
@@ -112,14 +121,16 @@ class NetworkSpec:
     name: str
     # (conf, base_network, n_sub_batches[, metadata_features]) -> module
     build: Callable
-    target_mode: str = "per_sample"  # per_sample|per_breath|regression
-    kind: str = "classifier"  # classifier|regressor|detector
+    # per_sample|per_breath|regression|autoencoder
+    target_mode: str = "per_sample"
+    # classifier|regressor|detector|autoencoder|siamese
+    kind: str = "classifier"
     expand_obs_idx: bool = False  # per-breath heads repeat an index S times
     uses_metadata: bool = False  # reads the metadata input
     stateful_lstm: bool = False  # carries its LSTM state when unshuffled
     super_batch: bool = False  # whole-patient super batches (NestedTrainer)
     eval_dropout_off: bool = False  # eval runs with dropout off
-    trainer: str = "standard"  # standard|protopnet
+    trainer: str = "standard"  # standard|protopnet|siamese
     two_dim: bool = False  # over ImgARDSDataset images (N, C, H, W)
 
 
@@ -253,7 +264,7 @@ NETWORK_MAP = {
     "protopnet": NetworkSpec(
         "protopnet",
         lambda conf, bb, s, m=0: protopnet1d.construct_ppnet(
-            bb, sub_batch_size=s,
+            _with_conv_info(bb), sub_batch_size=s,
             n_prototypes=conf.get("n_prototypes", 10) or 10,
             incorrect_strength=conf.get("incorrect_strength", -0.5) or -0.5,
             average_linear=bool(conf.get("average_linear_layer"))),
@@ -288,6 +299,54 @@ NETWORK_MAP = {
 }
 
 
+def _with_conv_info(bb):
+    """``bb``, whose ``conv_info`` ProtoPNet's receptive fields read:
+    raises as the backbone's own does (SENet's ``NotImplementedError``),
+    or names a backbone that has none."""
+    if not hasattr(bb, "conv_info"):
+        raise ValueError("protopnet reads its backbone's conv_info, which "
+                         "{} has not".format(type(bb).__name__))
+    bb.conv_info()
+    return bb
+
+
+def _autoencoder(conf, bb, s, m=0):
+    """The full ``AutoencoderCNN`` over ``basic_cnn_ae``'s input channels
+    (the reference's ``AutoencoderNetwork``); another base network is
+    refused by name."""
+    if conf.get("base_network") != "basic_cnn_ae":
+        raise ValueError(
+            "autoencoder reconstructs its input with AutoencoderCNN: "
+            "--base-network basic_cnn_ae, not {}".format(
+                conf.get("base_network")))
+    return heads.AutoencoderNetwork(
+        autoencoder_cnn.AutoencoderCNN(in_channels=bb.in_channels))
+
+
+NETWORK_MAP.update({
+    "autoencoder": NetworkSpec("autoencoder", _autoencoder,
+                               target_mode="autoencoder",
+                               kind="autoencoder"),
+    # the networks of the siamese trainer
+    **{name: NetworkSpec(name, build, kind="siamese", trainer="siamese")
+       for name, build in (
+           ("siamese_cnn_linear",
+            lambda conf, bb, s, m=0: siamese.SiameseCNNLinearNetwork(
+                bb, s, bn_scope=_bn_scope(conf))),
+           ("siamese_cnn_lstm",
+            lambda conf, bb, s, m=0: siamese.SiameseCNNLSTMNetwork(
+                bb, s, _hidden_units(conf), _bn_scope(conf))),
+           ("siamese_cnn_transformer",
+            lambda conf, bb, s, m=0: siamese.SiameseCNNTransformerNetwork(
+                bb, s, _hidden_units(conf), _bn_scope(conf))))},
+    "siamese_pretrained": NetworkSpec(
+        "siamese_pretrained",
+        lambda conf, bb, s, m=0: siamese.SiameseARDSClassifier(
+            bb, s, time_layer=conf.get("siamese_time_layer") or "none",
+            hidden_units=_hidden_units(conf), bn_scope=_bn_scope(conf))),
+})
+
+
 def two_dim_base_network(spec, base):
     """The backbone a 2D network trains: ``base`` with the suffix of its
     family, ``_2x1d`` for a ``*_2x1d`` network, else ``_2d``, unless it
@@ -298,8 +357,6 @@ def two_dim_base_network(spec, base):
 
 
 def get_network_spec(name):
-    if name in NOT_PORTED:
-        raise _not_ported(name)
     if name not in NETWORK_MAP:
         raise ValueError(
             "unknown network: {} (have: {})".format(name, sorted(NETWORK_MAP))

@@ -43,25 +43,34 @@ def kernel_ms(args, reps):
     return start.elapsed_time(end) / reps
 
 
+# profiles device_ms takes before it gives up
+PROFILE_ATTEMPTS = 3
+
+
 def device_ms(fn, reps=10):
     """Mean device time of the dtw kernel launches that torch.profiler
     records over ``reps`` calls of ``fn``.  It may record fewer launches
-    than were made, so the mean is over those it recorded."""
+    than were made, so the mean is over those it recorded; a profile that
+    records none (seen once on an H100) is taken again, up to
+    PROFILE_ATTEMPTS profiles."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and "dtw" in e.key]
-    count = sum(e.count for e in kernels)
-    if count == 0:
-        raise RuntimeError("the profiler recorded no dtw kernel")
-    return sum(e.self_device_time_total for e in kernels) / count / 1e3
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "dtw" in e.key]
+        count = sum(e.count for e in kernels)
+        if count:
+            return sum(e.self_device_time_total
+                       for e in kernels) / count / 1e3
+    raise RuntimeError("the profiler recorded no dtw kernel in {} "
+                       "profiles".format(PROFILE_ATTEMPTS))
 
 
 def parse_shape(text):

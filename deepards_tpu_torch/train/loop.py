@@ -77,10 +77,10 @@ def make_trainer(conf, **kwargs):
     """The trainer a configuration asks for, dispatched in the JAX
     package's order (``deepards_tpu/train/loop.py:39-63``): all folds at
     once with ``parallel_folds`` for a network of the standard trainer,
-    the ProtoPNet trainer for its networks, the detector trainer for a
-    detector, the nested trainer for a whole-patient network, else
-    ``Trainer``.  The networks of the trainers not ported yet are refused
-    by ``get_network_spec``; ``parallel_folds`` with a 2D network is
+    the ProtoPNet trainer for its networks, the siamese trainer for the
+    twin networks (with ``parallel_folds`` too, as there), the detector
+    trainer for a detector, the nested trainer for a whole-patient
+    network, else ``Trainer``.  ``parallel_folds`` with a 2D network is
     refused, since its stacked folds gather from the device cache, which
     images do not use."""
     spec = get_network_spec(conf.network)
@@ -100,6 +100,10 @@ def make_trainer(conf, **kwargs):
         )
 
         return ProtoPNetTrainer(conf, **kwargs)
+    if spec.trainer == "siamese":
+        from deepards_tpu_torch.train.siamese_trainer import SiameseTrainer
+
+        return SiameseTrainer(conf, **kwargs)
     if spec.kind == "detector":
         from deepards_tpu_torch.train.detector_trainer import (
             DetectorTrainer,
@@ -257,6 +261,11 @@ class Trainer:
             raise NotImplementedError(
                 "options not ported to deepards_tpu_torch yet: "
                 + ", ".join(unported))
+        if conf.get("load_siamese"):
+            raise ValueError(
+                "--load-siamese is read by nothing, here or in the JAX "
+                "package: --load-base-network splices a siamese "
+                "checkpoint's breath_block into siamese_pretrained")
         if conf.get("dp_devices", -1) not in (-1, 1, None):
             raise NotImplementedError(
                 "dp_devices={}: the port trains on one device".format(
@@ -277,7 +286,7 @@ class Trainer:
         self.seed = conf.get("seed", 42) or 42
         self.host_rng = np.random.default_rng(self.seed)
         self.compute_dtype = _DTYPES[conf.get("compute_dtype", "bfloat16")]
-        if self.spec.kind == "regressor":
+        if self.spec.kind in ("regressor", "autoencoder"):
             self.loss_fn = loss_lib.mse
         else:
             self.loss_fn = loss_lib.get_classification_loss(
@@ -1018,6 +1027,8 @@ class Trainer:
             self.results.update_epoch_meter("test_loss", epoch_num,
                                             float(loss))
         self.last_eval = {"index": idx, "logits": outs}
+        if self.spec.kind == "autoencoder":
+            return  # its record is the test losses alone, as in JAX
         if self.spec.kind == "regressor":
             self.record_regressor_results(outs, dataset.cache.target[idx],
                                           fold_num)

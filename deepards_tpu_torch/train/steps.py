@@ -104,8 +104,10 @@ def make_train_step(
     (``deepards_tpu/train/steps.py:196-197``): 'per_sample', (B, 2)
     logits against (B, 2) targets; 'per_breath', (B, S, 2) logits against
     the target repeated over the S windows; 'regression', (B, T)
-    predictions against (B, T) targets.  A stateful head's
-    ``(logits, carry)`` output is reduced to its logits.
+    predictions against (B, T) targets; 'autoencoder', the (B, S, C, L)
+    reconstruction against the normalized input in the compute dtype,
+    cast to (at least) float32 (``deepards_tpu/train/steps.py:198``).  A
+    stateful head's ``(logits, carry)`` output is reduced to its logits.
 
     transform: the normalization applied to the raw data on the device.
     compute_dtype: params and data are cast to it for the forward and the
@@ -122,7 +124,8 @@ def make_train_step(
     Neither step reads a value back to the host, so both can be captured
     in a CUDA graph.
     """
-    if target_mode not in ("per_sample", "per_breath", "regression"):
+    if target_mode not in ("per_sample", "per_breath", "regression",
+                           "autoencoder"):
         raise ValueError("unknown target_mode: {}".format(target_mode))
     if bn_mask_rows not in ("windows", "batch"):
         raise ValueError("unknown bn_mask_rows: {}".format(bn_mask_rows))
@@ -157,6 +160,8 @@ def make_train_step(
             out = out.float()
         if target_mode == "per_breath":
             target = target[:, None, :].expand(-1, out.shape[1], -1)
+        elif target_mode == "autoencoder":
+            target = data.to(torch.promote_types(data.dtype, torch.float32))
         return loss_fn(out, target, mask), out
 
     def train_step(state, data, target, mask, meta=None):

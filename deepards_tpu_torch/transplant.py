@@ -16,12 +16,20 @@ nested dicts of arrays, or flat with "a/b/c" keys as
 Names are mapped by one table per block family (``Family``): a module's
 fixed names, and its indexed kinds, where ``Kind_k`` is entry k of a list.
 The backbone's family is ResNet when the tree has a ``BasicBlock_i`` or
-``Bottleneck_i``, DenseNet-2D when it has a ``DenseLayer2D_i`` (its convs
-flax ``Conv_k`` with no ``Conv1d`` around them), else DenseNet.  A
+``Bottleneck_i``, SENet when it has one of the four SE blocks (each with
+its ``SEModule_0`` as ``se``, whose ``Conv1d_k`` are ``se.convs.k``),
+DenseNet-2D when it has a ``DenseLayer2D_i`` (its convs flax ``Conv_k``
+with no ``Conv1d`` around them), DenseNet when it has a ``DenseLayer_i``,
+UNet when it has a ``DoubleConv_k`` (``double_convs.k``, each with
+``convs.0`` and ``convs.1``; the full network's ``Conv1d_0`` is its
+``out_conv``), else a stack of convs (VGG, the autoencoder and its
+encoder): ``Conv1d_k``, ``BatchStatNorm_k`` and the decoder's
+``ConvTranspose_k`` are ``convs.k``, ``norms.k`` and ``deconvs.k``.  A
 network's ``Dense_0`` is its ``head``, unless it has a chain of Dense
-layers (``Dense_1`` too), which are ``layers.k``; ``OptimizedLSTMCell_0``
-is its ``lstm`` (``_1``, the double LSTM's second, its ``sequence_lstm``),
-``SimpleCell_0`` its ``rnn``
+layers (``Dense_1`` too), which are ``layers.k``; the siamese networks'
+``linear_intermediate`` and ``linear_final`` keep their names;
+``OptimizedLSTMCell_0`` is its ``lstm`` (``_1``, the double LSTM's
+second, its ``sequence_lstm``), ``SimpleCell_0`` its ``rnn``
 (Dense ``i`` the ``input``, ``h`` the ``hidden``), ``Transformer_0`` its
 ``transformer``, whose ``Block_k`` are ``blocks.k``, each with its
 ``MultiHeadAttention_0`` as ``attention`` and its ``LayerNorm_k`` and
@@ -80,6 +88,23 @@ _RESNET_BLOCK = Family(indexed={"Conv1d": ("convs", _CONV),
 _RESNET = Family(indexed={**_RESNET_BLOCK.indexed,
                           "BasicBlock": ("blocks", _RESNET_BLOCK),
                           "Bottleneck": ("blocks", _RESNET_BLOCK)})
+# SENet's blocks: a ResNet block's lists and the SE gate's two convs
+_CONVS = Family(indexed={"Conv1d": ("convs", _CONV)})
+_SE_BLOCK = Family(fixed={"SEModule_0": ("se", _CONVS)},
+                   indexed=_RESNET_BLOCK.indexed)
+_SENET = Family(indexed={
+    **_RESNET_BLOCK.indexed,
+    **{kind: ("blocks", _SE_BLOCK)
+       for kind in ("SEBasicBlock", "SEBottleneck", "SEResNetBottleneck",
+                    "SEResNeXtBottleneck")}})
+# UNet: DoubleConv_k's two convs; the full network's 1x1 Conv1d_0
+_UNET = Family(fixed={"Conv1d_0": ("out_conv", _CONV)},
+               indexed={"DoubleConv": ("double_convs", _CONVS)})
+# VGG and the autoencoder: convs and norms in creation order, the
+# decoder's flax ConvTranspose_k (kernel and bias, no Conv inside)
+_CONV_STACK = Family(indexed={**_RESNET_BLOCK.indexed,
+                              "ConvTranspose": ("deconvs", None)})
+_SE_KINDS = set(_SENET.indexed) - set(_RESNET_BLOCK.indexed)
 _LSTM_CELL = Family(fixed={
     **{"i" + g: ("input." + g, None) for g in "ifgo"},
     **{"h" + g: ("hidden." + g, None) for g in "ifgo"}})
@@ -107,7 +132,9 @@ def _network(backbone, dense_chain):
                "SimpleCell_0": ("rnn", _SIMPLE_CELL),
                "Transformer_0": ("transformer", _TRANSFORMER),
                "add_on_layers": ("add_on_layers", _ADD_ON),
-               "last_layer": ("last_layer", None), **dense},
+               "last_layer": ("last_layer", None),
+               "linear_intermediate": ("linear_intermediate", None),
+               "linear_final": ("linear_final", None), **dense},
         indexed={"Dense": ("layers", None)} if dense_chain else {})
 
 
@@ -117,13 +144,20 @@ def _root_family(paths):
     kinds = {n.rpartition("_")[0] for n in names}
     if kinds & {"BasicBlock", "Bottleneck"}:
         backbone = _RESNET
+    elif kinds & _SE_KINDS:
+        backbone = _SENET
     elif "DenseLayer2D" in kinds:
         backbone = _DENSENET_2D
-    else:
+    elif "DenseLayer" in kinds:
         backbone = _DENSENET
+    elif "DoubleConv" in kinds:
+        backbone = _UNET
+    else:
+        backbone = _CONV_STACK
     top = {path[0] for path in paths}
     if not top & {"breath_block", "OptimizedLSTMCell_0", "SimpleCell_0",
-                  "Dense_0", "Transformer_0", "prototype_vectors"}:
+                  "Dense_0", "Transformer_0", "prototype_vectors",
+                  "linear_final"}:
         return backbone  # a bare backbone tree
     return _network(backbone, "Dense_1" in top)
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the nested transformer's float32 parts from float64 on the card.
+"""Where a network's float32 parts from float64 on the card.
 
-    python3 float32_gap.py [--device cuda|cpu]
+    python3 float32_gap.py [--device cuda|cpu] [--network NAME]
+                           [--full-depth]
 
 ``chip_smoke.py`` holds cnn_to_nested_transformer's float32 params, card
 against CPU, after the first of its 3 full-width train steps only
@@ -16,10 +17,17 @@ the smoke's own harness, and prints one JSON line each:
 - ``settings``: the 3 steps with the params held after each, under each
   cuDNN setting the port controls.
 
+With ``--network`` another network of the smoke (a senet at the depth
+the smoke holds it, or with ``--full-depth`` at its own) prints one
+``clamp_swings`` line instead:
+the smoke's 3 card-vs-CPU steps with its float32 params held after all 3,
+and for each step each side's float32 gradients after the clamp
+(``--clip-val``) against float64's on the CPU.
+
 It runs on the card (TF32 off, as the smoke sets it) unless ``--device
 cpu``, where both sides are the CPU; it gates nothing and exits non-zero
 only when there is no card or the harness's own controls fail.  About 30 s
-on an H100.
+on an H100 (the nested transformer).
 """
 import argparse
 import copy
@@ -169,9 +177,79 @@ def settings(device, name=NETWORK):
     return out
 
 
+def clamp_swings(device, name, top=3):
+    """The smoke's card-vs-CPU steps of ``name`` with its
+    float32 params held after all 3 steps: the check's failure (None where
+    it passes), each side's float32 distance from float64 after each step,
+    and per step each side's float32 gradients, clamped as the optimizer
+    clamps them, against float64's on the CPU: the elements apart by more
+    than 1e-3 and the ``top`` largest differences with their tensor and
+    both values.  A failure of the harness's own controls is the
+    failure too (the CPU against itself with the rows permuted, which
+    comes after the float32 readings)."""
+    from deepards_tpu_torch.train import steps
+    from deepards_tpu_torch.train.loop import Trainer
+
+    smoke.FLOAT32_PARAM_STEPS.pop(name, None)
+    conf = smoke.config_conf(name, "--device", "cpu")
+    trainer = Trainer(conf, verbose=False)
+    trainer.n_sub_batches = conf.n_sub_batches
+    names = [n for n, _ in trainer.build_model().named_parameters()]
+    clip = conf.clip_val if conf.get("clip_grad") else float("inf")
+    # every optimizer step's gradients before the clamp, in the order the
+    # check runs them: float64 on the CPU and on the card, float32 on the
+    # CPU and on the card, 3 steps each, then its own controls
+    grads = []
+    step = steps.ClippedOptimizer.step
+
+    def logged(self):
+        grads.append([p.grad.detach().to("cpu", torch.float64, copy=True)
+                      .clamp(-clip, clip) for p in self.params])
+        return step(self)
+
+    steps.ClippedOptimizer.step = logged
+    fields = {"atol": smoke.TRAIN_STEP_ATOL, "by_gradient": {}}
+    try:
+        smoke._train_card_vs_cpu(device, name, fields)
+        failure = None
+    except AssertionError as exc:
+        failure = str(exc)
+    finally:
+        steps.ClippedOptimizer.step = step
+    exact = grads[0:3]
+    swings = []
+    for k in range(3):
+        row = {}
+        for side, run in (("cpu", grads[6:9]), ("device", grads[9:12])):
+            diffs = [((got - want).abs(), n, got, want)
+                     for n, got, want in zip(names, run[k], exact[k])]
+            largest = sorted(((float(d.max()), n, int(d.argmax()), g, w)
+                              for d, n, g, w in diffs), reverse=True)[:top]
+            row[side] = {
+                "over_1e-3": sum(int((d > 1e-3).sum()) for d, *_ in diffs),
+                "largest": [{"tensor": n, "diff": d,
+                             "float32": float(g.flatten()[i]),
+                             "float64": float(w.flatten()[i])}
+                            for d, n, i, g, w in largest]}
+        swings.append(row)
+    f32 = fields["float32"]
+    return {"batch": fields["batch"], "failure": failure,
+            **{"{}_vs_float64".format(side): [
+                r["max_abs"] for r in f32["{}_vs_float64".format(side)]]
+               for side in ("device", "cpu")},
+            "over_atol_held_by_step": [
+                f32["after_step_{}".format(k)]["over_atol_held"]
+                for k in (1, 2, 3)],
+            "clamp_swings": swings}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--network", default=NETWORK,
+                        help="a network of chip_smoke.CONFIG_FLAGS")
+    parser.add_argument("--full-depth", action="store_true",
+                        help="a senet at its own depth")
     args = parser.parse_args(argv)
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -179,8 +257,16 @@ def main(argv=None):
                   file=sys.stderr)
             return 1
         smoke.phase_env()  # TF32 off; prints the card's name and limit
-    smoke.emit("op_errors", network=NETWORK, **op_errors(args.device))
-    smoke.emit("settings", network=NETWORK, **settings(args.device))
+    if args.network == NETWORK:
+        smoke.emit("op_errors", network=NETWORK, **op_errors(args.device))
+        smoke.emit("settings", network=NETWORK, **settings(args.device))
+        return 0
+    name = args.network
+    if args.full_depth:
+        smoke.NEW_DEPTH["one_block_a_stage"]["card_vs_cpu"] = ()
+    with smoke.one_block_a_stage(name, "card_vs_cpu") as blocks:
+        smoke.emit("clamp_swings", network=name, blocks_a_stage=blocks,
+                   **clamp_swings(args.device, name))
     return 0
 
 

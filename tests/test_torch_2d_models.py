@@ -26,13 +26,15 @@ from test_torch_configs_2_3_4 import jit_apply, random_params
 from deepards_tpu.models import densenet2d as jdensenet
 from deepards_tpu.models import detection2d as jdetection
 from deepards_tpu.models import protopnet2d as jprotopnet
+from deepards_tpu.models import registry as jregistry
 from deepards_tpu.models.layers import BatchStatNorm as JaxNorm
 from deepards_tpu.models.layers import bn_row_mask as jax_bn_row_mask
 from deepards_tpu.train.detector_trainer import band_iou as jax_band_iou
 from deepards_tpu_torch.models import densenet2d, detection2d, protopnet2d
 from deepards_tpu_torch.models.layers import BatchStatNorm, bn_row_mask
 from deepards_tpu_torch.models.registry import (
-    NOT_PORTED,
+    BASE_NETWORKS,
+    NETWORK_MAP,
     get_base_network,
     get_network_spec,
     two_dim_base_network,
@@ -200,7 +202,10 @@ def test_bands_and_iou_match_jax():
 def test_registry_2d_entries():
     """No 2D name is left unported; the 2D specs and backbones as the JAX
     package's, the base network suffixed by the network's family."""
-    assert not [n for n in NOT_PORTED if "2d" in n or "2x1d" in n]
+    two_dim = [n for n in (*jregistry.BASE_NETWORKS, *jregistry.NETWORK_MAP)
+               if "2d" in n or "2x1d" in n]
+    assert two_dim and all(n in BASE_NETWORKS or n in NETWORK_MAP
+                           for n in two_dim)
     for name, kind, trainer in (
             ("cnn_linear_2d", "classifier", "standard"),
             ("cnn_linear_2x1d", "classifier", "standard"),

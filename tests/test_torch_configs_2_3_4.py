@@ -218,7 +218,8 @@ def assert_train_steps_match_jax(jmodel, model, s, b, optimizer,
     """``steps`` train steps of ``jmodel`` and its port ``model`` over (b,
     s, channels, L) batches from the same params: losses within
     ``loss_atol``, every param within 1e-5 after each."""
-    loss_name = "mse" if target_mode == "regression" else "bce_with_logits"
+    loss_name = ("mse" if target_mode in ("regression", "autoencoder")
+                 else "bce_with_logits")
     opts = OPTIONS[optimizer]
     tx = jsteps.make_optimizer(optimizer, **opts)
     params = random_params(jmodel, 5, jnp.zeros((b, s, channels, L)), None,
@@ -289,7 +290,7 @@ def test_chip_smoke_adam_reference_matches_optax():
 
 def test_unknown_target_mode_raises():
     with pytest.raises(ValueError, match="target_mode"):
-        make_train_step(losses.mse, target_mode="autoencoder")
+        make_train_step(losses.mse, target_mode="reconstruction")
 
 
 # -- whole runs --------------------------------------------------------------
@@ -464,18 +465,26 @@ def test_network_without_backbone_trains(synthetic_cohort, tmp_path):
         trainer.load_base_network(trainer.final_state, "unused.pt")
 
 
-@pytest.mark.parametrize("over", [
-    dict(network="siamese_cnn_linear"),
-    dict(network="siamese_cnn_lstm", parallel_folds=True),
-    dict(network="siamese_cnn_transformer"), dict(network="autoencoder"),
-    dict(network="siamese_pretrained"),
+@pytest.mark.parametrize("over,match", [
+    (dict(network="siamese_cnn_linear"), "kfolds"),
+    (dict(network="siamese_cnn_lstm", parallel_folds=True), "kfolds"),
+    (dict(network="siamese_cnn_transformer", kfolds=None, bootstrap=True),
+     "bootstrap"),
+    (dict(network="autoencoder", base_network="densenet18"), "basic_cnn_ae"),
+    (dict(network="siamese_pretrained", siamese_time_layer="gru"),
+     "siamese_time_layer"),
 ])
-def test_unported_paths_raise(synthetic_cohort, tmp_path, over):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tloop.make_trainer(Configuration(overrides=_overrides(
+def test_unported_paths_raise(synthetic_cohort, tmp_path, over, match):
+    """What the port refuses by name: folds for the siamese trainer's
+    networks, the autoencoder over another backbone than basic_cnn_ae, an
+    unknown time layer; and an unknown base network."""
+    with pytest.raises(ValueError, match=match):
+        trainer = tloop.make_trainer(Configuration(overrides=_overrides(
             synthetic_cohort, tmp_path, **over)), device="cpu")
-    with pytest.raises(NotImplementedError, match="base network"):
-        get_base_network({"base_network": "vgg11"})
+        trainer.n_sub_batches = 4
+        trainer.build_model()
+    with pytest.raises(ValueError, match="unknown base network"):
+        get_base_network({"base_network": "vgg19"})
 
 
 def test_registry_specs_of_the_new_networks():

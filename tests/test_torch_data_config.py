@@ -22,8 +22,10 @@ from deepards_tpu_torch.data import synthetic as tsynthetic
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG1 = os.path.join(ROOT, "deepards_tpu", "config", "experiment_files",
                        "unpadded_centered_nb20_cnn_linear.yml")
-# keys only the port's parser has
-PORT_ONLY = {"device"}
+# keys only the port's parser has: the device, and siamese_pretrained's
+# time layer, which the JAX package reads from a yml only (the card's
+# machine has no PyYAML)
+PORT_ONLY = {"device", "siamese_time_layer"}
 
 
 def _conf(module, parser_module, argv):
@@ -89,6 +91,7 @@ def test_cli_keeps_the_jax_flag_surface():
     jax_flags = options(jtrain.build_parser())
     assert {k: v for k, v in port.items() if v not in PORT_ONLY} == jax_flags
     assert port["--device"] == "device"
+    assert port["--siamese-time-layer"] == "siamese_time_layer"
 
 
 def test_cli_refuses_platform_tpu():

@@ -82,7 +82,14 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.models.densenet2d",
             "deepards_tpu_torch.models.protopnet2d",
             "deepards_tpu_torch.models.detection2d",
-            "deepards_tpu_torch.train.detector_trainer"} <= set(
+            "deepards_tpu_torch.train.detector_trainer",
+            "deepards_tpu_torch.models.siamese",
+            "deepards_tpu_torch.models.vgg1d",
+            "deepards_tpu_torch.models.senet1d",
+            "deepards_tpu_torch.models.unet1d",
+            "deepards_tpu_torch.models.autoencoder_cnn",
+            "deepards_tpu_torch.data.siamese_dataset",
+            "deepards_tpu_torch.train.siamese_trainer"} <= set(
                 report["modules"])
     forbidden = [
         name for name in report["loaded"]
@@ -492,3 +499,67 @@ def test_resolve_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             resolve_device(None)
+
+
+_SIAMESE_WITHOUT = r"""
+import json, sys
+for blocked in ("pandas", "sklearn", "yaml", "jax", "deepards_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from deepards_tpu_torch.cli.predict import main as predict
+from deepards_tpu_torch.cli.train import main
+from deepards_tpu_torch.data.synthetic import generate_cohort
+
+work = sys.argv[1]
+cohort = generate_cohort(work + "/cohort", n_patients=6,
+                         n_breaths_per_patient=80, seed=3,
+                         subdirs=("all_data", "aim1_70_30_training",
+                                  "aim1_70_30_testing"))
+small = ["--data-path", work + "/cohort", "--cohort-file", cohort,
+         "--epochs", "1", "--device", "cpu", "--results-dir",
+         work + "/results", "--n-sub-batches", "4", "--batch-size", "4",
+         "--saved-models-dir", work + "/models"]
+report = {}
+for name in chip_smoke.SIAMESE:
+    trainer = main(chip_smoke.CONFIG_FLAGS[name] + small + [
+        "--save-model", name + ".pt"])
+    report[name] = [len(trainer.results.get_meter(m, 0).values)
+                    for m in ("loss", "accuracy")]
+folds = ["--kfolds", "2", "--only-fold", "0"]
+pretrained = chip_smoke.CONFIG_FLAGS["siamese_pretrained_lstm"] + small + \
+    folds + ["--load-base-network", work + "/models/siamese_cnn_linear"]
+trainer = main(pretrained + ["--save-model", "pretrained.pt"])
+report["siamese_pretrained"] = len(trainer.results.get_meter(
+    "test_auc", 0).values)
+rows, votes = predict(["--checkpoint", work + "/models/pretrained-fold0",
+                       "-o", work + "/p.csv", "--votes-output",
+                       work + "/v.json"] + pretrained)
+report["predict_rows"] = len(rows)
+trainer = main(chip_smoke.CONFIG_FLAGS["autoencoder"] + small)
+report["autoencoder"] = len(trainer.results.get_meter("test_loss", 0).values)
+print(json.dumps(report))
+"""
+
+
+def test_siamese_and_autoencoder_train_without_pandas_sklearn_or_yaml(
+        tmp_path):
+    """One epoch of each twin network from chip_smoke.py's flags (S = 4,
+    batch 4) with its checkpoint, siamese_pretrained from
+    siamese_cnn_linear's tower and ``cli.predict`` on it, and one epoch of
+    the autoencoder on the ``main`` holdout, with pandas, scikit-learn,
+    PyYAML, JAX and deepards_tpu blocked."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SIAMESE_WITHOUT, str(tmp_path)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("siamese_cnn_linear", "siamese_cnn_lstm",
+                 "siamese_cnn_transformer"):
+        losses, accuracy = report[name]
+        assert losses > 0 and accuracy == 1, name
+    assert report["siamese_pretrained"] == 1 and report["predict_rows"] > 0
+    assert report["autoencoder"] > 0
+    assert (tmp_path / "models" / "siamese_cnn_linear.scaling.json").exists()

@@ -186,5 +186,8 @@ def test_registry_builds_seeded_full_width_cnn_linear():
         get_base_network({"base_network": "no_such_base_network"})
     with pytest.raises(ValueError, match="unknown network"):
         get_network_spec("no_such_network")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_network_spec("siamese_cnn_transformer")
+    twin = get_network_spec("siamese_cnn_transformer")
+    assert (twin.kind, twin.trainer) == ("siamese", "siamese")
+    with pytest.raises(ValueError, match="basic_cnn_ae"):
+        get_network_spec("autoencoder").build(conf, get_base_network(conf),
+                                              20)

@@ -37,7 +37,7 @@ from deepards_tpu_torch.cli.train import build_parser
 from deepards_tpu_torch.config.config import Configuration
 from deepards_tpu_torch.models import heads, recurrent, resnet1d
 from deepards_tpu_torch.models.registry import (
-    NOT_PORTED,
+    NETWORK_MAP,
     get_base_network,
     get_network_spec,
 )
@@ -206,7 +206,7 @@ NEW = ("lstm_only", "lstm_only_with_packing", "double_lstm",
 def test_registry_spec_matches_jax(name):
     """Each new network is ported with the JAX package's spec fields, and
     builds with the configuration's options (hidden units, blocks)."""
-    assert name not in NOT_PORTED
+    assert name in NETWORK_MAP
     spec, want = get_network_spec(name), jregistry.get_network_spec(name)
     for field in SPEC_FIELDS:
         assert getattr(spec, field) == getattr(want, field), field
