@@ -17,8 +17,8 @@ served windows' breaths through the kernel.  Then the training path:
 benchmark config 1 trained through ``deepards_tpu_torch.cli.train`` on a
 seeded synthetic cohort (5 folds, 2 epochs, every step a CUDA-graph
 replay), three steps held against the CPU in float32 and float64, a
-trained checkpoint served, and the bf16 step and a 4096-window epoch
-timed eagerly and as graph replays.  ``graph_vs_eager`` holds 8 graphed
+trained checkpoint served, and the bf16 step and an epoch (1024 windows
+eagerly, 4096 as graph replays) timed.  ``graph_vs_eager`` holds 8 graphed
 device-cache steps of config 1 to the same steps run eagerly, and
 ``config1_surface`` drives the rest of config 1's trainer through the CLI
 (augmentation, the Butterworth filter, fused host epochs, step
@@ -80,13 +80,28 @@ then siamese_pretrained with each time layer from siamese_cnn_linear's
 checkpoint, served and predicted against the trainer; ``backbones``
 does the same for each new base network under cnn_linear, the
 autoencoder and ProtoPNet over vgg11_bn (``BACKBONE_FLAGS``); one line a
-network.  Every other phase prints one JSON line, and ``phase_seconds``
-each phase's seconds; any failure exits nonzero.  The last two lines are the card's ``nvidia-smi`` name and power limit and
+network.  Then ``analytics``: config 1 trained through the CLI with
+``--perform-dtw-preprocessing`` (the DTW kernel's path inside training;
+its patients' frames held exactly to the CPU's, with planted faults), one
+real-size patient (1,440 windows) through the same hook, timed by stage
+beside the kernel's bound, ``cli.evaluate`` over the train phase's fold
+checkpoints against ``cli.predict``, ``cli.cam_analytics`` (one-d, two-d,
+butter) card vs CPU over the checkpoints of an FFT run and a Butterworth
+run, and ``cli.mean_metrics``, ``cli.visualize_results`` and
+``cli.find_all_experiments`` over the phase's results.  The CPU sides of
+the card-vs-CPU checks of ``sequence``, ``siamese`` and ``backbones`` run
+in a worker process from the start (``CpuSides``), and every run of such
+a check replays the CPU float64 run's sort picks and clamp decisions.
+Every other phase prints one JSON line, ``cpu_worker`` the worker's busy
+and wait seconds, and ``phase_seconds`` each phase's seconds; any
+failure exits nonzero (the phases after a failed one still run).  The
+last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints
 no result.
 """
 import contextlib
 import copy
+import glob
 import io
 import json
 import os
@@ -96,6 +111,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 from collections import Counter
 
@@ -581,7 +597,7 @@ def phase_kernel():
         plain_ms = None
         if bsz == 65536:
             plain_ms = cuda_ms(lambda: dtw_reference(a, b, la, lb),
-                               warmup=0, reps=10)
+                               warmup=0, reps=3)
         want = dtw_reference(a, b, la, lb)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -833,21 +849,37 @@ SORTING = ("cnn_linear_compr_to_rf",) + NESTED_NETWORKS
 # ``device_vs_float64`` read each side's float32 distance from float64)
 #
 # The first conv's float32 gradient is ~1e-3 of its scale off float64's
-# on either device (``BY_GRADIENT``'s reason).  Its elements below the
-# clamp (``--clip-val`` 0.01) pass that error to their update; where one
-# swings across the clamp's range, the conv's params part by lr x 1.9 x
-# 0.02 = 3.8e-5 (Nesterov) and the next step's gradients of the whole
-# backbone follow.  siamese_cnn_linear's and siamese_cnn_transformer's
-# three tower passes a step sum the most into that gradient: at the
-# flags' batch (16) the card's float32 after step 3 leaves float64 by
-# 1.2e-5-1.5e-5 / 3.8e-5 and the CPU's by 5.4e-5 / 4.3e-5 (an H100 at
-# 700 W and its host; ``float32_gap.py --network`` reads the swings), so
-# their float32 params are held after 2 steps.  vgg13_bn's
-# and senet18's float32 steps at 16 fail the CPU against itself (rows
-# permuted) after step 3, so theirs are held after 2 steps too.
+# on either device (``BY_GRADIENT``'s reason).  Where one of its elements
+# swings across the clamp (``--clip-val`` 0.01) on one side only, the
+# conv's params part by lr x 1.9 x 0.02 = 3.8e-5 (Nesterov) and the next
+# step's gradients of the whole backbone follow (``float32_gap.py
+# --network`` reads the swings).  ``clamp_mode`` replays the float64
+# run's clamp decisions in every other run, so those elements take the
+# same bound on both sides.
+#
+# Measured with the replay (an H100 at 700 W and its host): siamese_cnn_linear now holds all 3 steps.  siamese_cnn_transformer
+# does not: after step 3 each side's float32 leaves float64 by 3.8e-5
+# (CPU) / 3.4e-5 (card), 35 held elements over, while the CPU with its
+# rows permuted stays within 3.6e-6: the first conv's elements below the
+# clamp, which keep their own float32 error, move the backbone.  vgg13_bn,
+# senet18 and se_resnext50_32x4d (one block a stage) fail the CPU against
+# itself with its rows permuted after step 3 (8 / 231 / 1 held elements
+# over; se_resnext50's float32 within 8.3e-6 of float64, at the limit's
+# edge), so float32 cannot hold their step 3.
 FLOAT32_PARAM_STEPS = {"cnn_to_nested_transformer": 1,
-                       "siamese_cnn_linear": 2, "siamese_cnn_transformer": 2,
+                       "siamese_cnn_transformer": 2,
                        "cnn_linear_vgg13_bn": 2, "cnn_linear_senet18": 2}
+# Networks whose runs keep their own clamp decisions (no ``clamp_mode``).
+# se_resnext50_32x4d's float32 takes its own decision at 1 to 81 elements
+# of a clamp call where float64 takes the other (of 11,798-42,646 it
+# clamps); replayed, they move both CPU float32 runs so that the one
+# with its rows permuted leaves the other by 1.18e-5 in one held element
+# after step 3, where with their own decisions no held element moves by
+# more than 1e-5 (the largest, 1.18e-5, is in the first conv, held by its
+# gradient), on 4 threads as on 8 (``python3 float32_gap.py --device cpu
+# --network cnn_linear_se_resnext50_32x4d --control 4,8`` on an H100's
+# host).
+OWN_CLAMPS = ("cnn_linear_se_resnext50_32x4d",)
 
 
 
@@ -910,11 +942,54 @@ def sort_mode(records, replay=None, remap=None, gaps=None):
     return Mode()
 
 
+def clamp_mode(model, records, replay=None):
+    """A mode over one run of ``model`` with a clipped optimizer: each
+    clamp ``ClippedOptimizer.step`` calls (``torch._foreach_clamp_min_``
+    to -clip, then ``torch._foreach_clamp_max_`` to +clip) is recorded in
+    ``records`` as {param name: the mask of the elements it clamps}, on
+    the CPU; or, with ``replay`` (a run's records, in call order), each
+    call is made and then every element the record clamped is set to the
+    call's bound, so the run takes the recorded run's clamp decisions
+    where that run clamped and its own elsewhere.  The training path has
+    no hook: outside this mode the clamp is the optimizer's own."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    clamps = (torch._foreach_clamp_min_, torch._foreach_clamp_max_)
+    pending = iter(replay or ())
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func not in clamps:
+                return func(*args, **kwargs)
+            grads, bound = args[0], args[1]
+            name_of = {id(p.grad): n for n, p in model.named_parameters()
+                       if p.grad is not None}
+            names = [name_of[id(g)] for g in grads]
+            if replay is None:
+                low = func is clamps[0]
+                records.append({n: (g < bound if low else g > bound).cpu()
+                                for n, g in zip(names, grads)})
+                return func(*args, **kwargs)
+            out = func(*args, **kwargs)
+            masks = next(pending)
+            with torch.no_grad():
+                for n, g in zip(names, grads):
+                    g.masked_fill_(masks[n].to(g.device), bound)
+            return out
+
+    return Mode()
+
+
 # a nested network's step in card_vs_cpu: one patient of NESTED_REAL
 # windows in a bucket of NESTED_BUCKET (as many breaths as config 1's batch)
 NESTED_REAL, NESTED_BUCKET = 12, 16
 TRAIN_SERVE_ATOL = 1e-5  # the same params and batch on one device
 MEASURE_WINDOWS = 4096  # the device-cache epoch timed: 256 steps of 16
+# the eager epoch's cache: 64 steps of 16 (cut from 4096 for the script's
+# time; an eager step takes ~45 ms, host-bound)
+EAGER_MEASURE_WINDOWS = 1024
 STEP_NUMBERS = {}  # config -> train_numbers' readings of this run
 
 
@@ -1118,128 +1193,197 @@ def train_card_vs_cpu(device, name="config1"):
     a row), dropout off, on the device and on the CPU from the same
     params and batches, in float32 and in float64: losses and every param
     element after each step, as ``TRAIN_STEP_ATOL`` says, with the
-    controls it names; a network of SORTING takes the CPU run's picks on
-    the card, and the card's own sort is held by ``sort_mode``'s bound.
-    When a check fails, its readings are printed (``card_vs_cpu_failed``)
-    before it raises."""
+    controls it names; every run replays the CPU float64 run's sort picks
+    (``sort_mode``) and clamp decisions (``clamp_mode``), the card's own
+    sort held by ``sort_mode``'s bound.  The CPU's sides come from the
+    worker process where ``CPU_SIDES`` runs this network's, else they run
+    here.  When a check fails, its readings are printed
+    (``card_vs_cpu_failed``) before it raises."""
     fields = {"atol": TRAIN_STEP_ATOL, "by_gradient": {}}
+    cpu = None
+    if CPU_SIDES is not None and name in CPU_SIDES.names:
+        cpu = CPU_SIDES.sides(name)
     try:
-        return _train_card_vs_cpu(device, name, fields)
+        return _train_card_vs_cpu(device, name, fields, cpu)
     except AssertionError:
         emit("card_vs_cpu_failed", network=name, **fields)
         raise
 
 
-def _train_card_vs_cpu(device, name, fields):
-    import torch
+def over(got, want, limit, held=None, skip=None):
+    """Per held tensor, the count of elements beyond ``limit`` that
+    ``skip`` does not mask; tensors with none left out."""
+    counts = {}
+    for n in held or want:
+        bad = (got[n] - want[n]).abs() > limit
+        if skip is not None and n in skip:
+            bad &= ~skip[n]
+        if bad.any():
+            counts[n] = int(bad.sum())
+    return counts
 
-    from deepards_tpu_torch.data.pipeline import transform_batch
-    from deepards_tpu_torch.train.loop import Trainer
-    from deepards_tpu_torch.train.nested_trainer import make_nested_steps
-    from deepards_tpu_torch.train.siamese_trainer import make_siamese_steps
-    from deepards_tpu_torch.train.steps import (
-        TrainState,
-        make_optimizer,
-        make_train_step,
-    )
 
-    conf = config_conf(name, "--device", "cpu")
-    s, batch = conf.n_sub_batches, conf.batch_size
-    fields["batch"] = batch
-    rng = np.random.default_rng(SEED + 2)
-    trainer = Trainer(conf, verbose=False)
-    nested = trainer.spec.super_batch
-    # a siamese row is three windows: anchor, positive, negative
-    towers = 3 if trainer.spec.trainer == "siamese" else 1
-    if nested:
-        # a step is one patient: NESTED_REAL windows padded to its bucket,
-        # and the "rows permuted" control reorders each window's breaths
-        # (its norm's sums; its median is the same)
-        raw = np.zeros((3, NESTED_BUCKET, s, C, L), np.float32)
-        raw[:, :NESTED_REAL] = make_windows(
-            rng, 3 * NESTED_REAL, s).reshape(3, NESTED_REAL, s, C, L)
-        mu = np.float32([raw[:, :NESTED_REAL].mean()])
-        std = np.float32([raw[:, :NESTED_REAL].std()])
-        targets = random_targets(rng, 3, conf)[:, None]
-        mask = np.zeros((1, NESTED_BUCKET), np.float32)
-        mask[0, :NESTED_REAL] = 1.0
-        permuted = rng.permutation(s)
-    else:
-        raw = make_windows(rng, 3 * batch * towers, s)
-        mu = np.float32([raw.mean()])
-        std = np.float32([raw.std()])
-        targets = random_targets(rng, 3 * batch, conf)
-        mask = np.ones(batch, np.float32)
-        mask[-1] = 0.0  # one pad row
-        # the batch's rows in another order, the pad row last
-        permuted = np.append(rng.permutation(batch - 1), batch - 1)
-    trainer.n_sub_batches = s
-    model = trainer.build_model().reset_parameters(
-        torch.Generator().manual_seed(SEED))
-    init = model.state_dict()
-    names = [n for n, _ in model.named_parameters()]
-    head_bias = names[-1]
-    by_gradient = [n for n in names if n.startswith(BY_GRADIENT[name])]
-    adam = conf.optimizer == "adam"
-    limit = TRAIN_STEP_ATOL["params"]
-    sorts = name in SORTING
+def largest(got, want):
+    """(the largest distance of ``got`` from ``want``, its tensor)."""
+    errs = {n: float((got[n] - want[n]).abs().max()) for n in want}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
 
-    def sorting(fn, replay=None, remap=None, gaps=None):
-        """(fn(), its sorts' records), ``replay``ing a run's records."""
-        records = []
-        if not sorts:
-            return fn(), records
-        with sort_mode(records, replay, remap, gaps):
-            return fn(), records
 
-    def build(dev, dtype):
-        model = trainer.build_model()
-        model.load_state_dict(init)
+class CardVsCpu:
+    """The setup of ``train_card_vs_cpu`` for network ``name``, the same
+    in every process (params, batches and permutation drawn from seeds),
+    and its runs: ``run`` (3 steps) and ``gradients`` (one batch's)."""
+
+    def __init__(self, name):
+        import torch
+
+        from deepards_tpu_torch.train.loop import Trainer
+
+        self.name = name
+        conf = self.conf = config_conf(name, "--device", "cpu")
+        s, self.batch = conf.n_sub_batches, conf.batch_size
+        batch = self.batch
+        rng = np.random.default_rng(SEED + 2)
+        trainer = self.trainer = Trainer(conf, verbose=False)
+        self.nested = nested = trainer.spec.super_batch
+        # a siamese row is three windows: anchor, positive, negative
+        self.towers = 3 if trainer.spec.trainer == "siamese" else 1
+        if nested:
+            # a step is one patient: NESTED_REAL windows padded to its
+            # bucket, and the "rows permuted" control reorders each
+            # window's breaths (its norm's sums; its median is the same)
+            raw = np.zeros((3, NESTED_BUCKET, s, C, L), np.float32)
+            raw[:, :NESTED_REAL] = make_windows(
+                rng, 3 * NESTED_REAL, s).reshape(3, NESTED_REAL, s, C, L)
+            self.mu = np.float32([raw[:, :NESTED_REAL].mean()])
+            self.std = np.float32([raw[:, :NESTED_REAL].std()])
+            self.targets = random_targets(rng, 3, conf)[:, None]
+            self.mask = np.zeros((1, NESTED_BUCKET), np.float32)
+            self.mask[0, :NESTED_REAL] = 1.0
+            self.permuted = rng.permutation(s)
+        else:
+            raw = make_windows(rng, 3 * batch * self.towers, s)
+            self.mu = np.float32([raw.mean()])
+            self.std = np.float32([raw.std()])
+            self.targets = random_targets(rng, 3 * batch, conf)
+            self.mask = np.ones(batch, np.float32)
+            self.mask[-1] = 0.0  # one pad row
+            # the batch's rows in another order, the pad row last
+            self.permuted = np.append(rng.permutation(batch - 1), batch - 1)
+        self.raw = raw
+        trainer.n_sub_batches = s
+        model = trainer.build_model().reset_parameters(
+            torch.Generator().manual_seed(SEED))
+        self.init = model.state_dict()
+        self.names = [n for n, _ in model.named_parameters()]
+        self.head_bias = self.names[-1]
+        self.by_gradient = [n for n in self.names
+                            if n.startswith(BY_GRADIENT[name])]
+        self.adam = conf.optimizer == "adam"
+        self.clip = bool(conf.get("clip_grad"))
+        self.replays_clamps = self.clip and name not in OWN_CLAMPS
+        self.limit = TRAIN_STEP_ATOL["params"]
+        self.sorts = name in SORTING
+        self.held_steps = {"float64": (1, 2, 3), "float32": (
+            1, 2, 3)[:1 if self.adam else FLOAT32_PARAM_STEPS.get(name, 3)]}
+
+    def held(self, f32):
+        """The tensors held element by element: all but, in float32, the
+        ones of ``BY_GRADIENT``."""
+        return [n for n in self.names if not (f32 and n in self.by_gradient)]
+
+    def graded(self):
+        """The tensors whose gradients the checks read: ``BY_GRADIENT``'s,
+        or every one for Adam's noise level."""
+        return self.names if self.adam else self.by_gradient
+
+    def build(self, dev, dtype):
+        model = self.trainer.build_model()
+        model.load_state_dict(self.init)
         return model.to(device=dev, dtype=dtype)
 
+    @staticmethod
     def on(dev, dtype, *arrays):
+        import torch
+
         return [torch.from_numpy(x).to(device=dev, dtype=dtype)
                 for x in arrays]
 
-    def batch_of(k, dev, dtype, rows=slice(None)):
-        if nested:
-            return on(dev, dtype, raw[k:k + 1][:, :, rows], targets[k],
-                      mask)
+    def batch_of(self, k, dev, dtype, rows=slice(None)):
+        raw, targets, mask, batch = (self.raw, self.targets, self.mask,
+                                     self.batch)
+        if self.nested:
+            return self.on(dev, dtype, raw[k:k + 1][:, :, rows], targets[k],
+                           mask)
         sl = slice(k * batch, (k + 1) * batch)
-        if towers == 3:  # (anchor, target, mask, positive, negative)
+        if self.towers == 3:  # (anchor, target, mask, positive, negative)
             anchor, positive, negative = (
                 raw[t * 3 * batch:(t + 1) * 3 * batch][sl][rows]
                 for t in range(3))
-            return on(dev, dtype, anchor, targets[sl][rows], mask[rows],
-                      positive, negative)
-        return on(dev, dtype, raw[sl][rows], targets[sl][rows], mask[rows])
+            return self.on(dev, dtype, anchor, targets[sl][rows],
+                           mask[rows], positive, negative)
+        return self.on(dev, dtype, raw[sl][rows], targets[sl][rows],
+                       mask[rows])
 
-    def steps(dev, dtype, model, optimizer):
-        mu_d, std_d = on(dev, dtype, mu, std)
+    def steps(self, dev, dtype, model, optimizer):
+        import torch
+
+        from deepards_tpu_torch.data.pipeline import transform_batch
+        from deepards_tpu_torch.train.nested_trainer import (
+            make_nested_steps,
+        )
+        from deepards_tpu_torch.train.siamese_trainer import (
+            make_siamese_steps,
+        )
+        from deepards_tpu_torch.train.steps import TrainState, make_train_step
+
+        mu_d, std_d = self.on(dev, dtype, self.mu, self.std)
         state = TrainState(model, optimizer, torch.Generator(device=dev))
-        if nested:
+        if self.nested:
             step, _ = make_nested_steps(
-                trainer.loss_fn,
+                self.trainer.loss_fn,
                 transform=lambda d: transform_batch(d, mu_d, std_d),
                 dropout_active=False)
-        elif towers == 3:
+        elif self.towers == 3:
             step, _ = make_siamese_steps(
                 lambda d: transform_batch(d, mu_d, std_d),
                 dropout_active=False)
         else:
             step, _ = make_train_step(
-                trainer.loss_fn,
+                self.trainer.loss_fn,
                 transform=lambda d: transform_batch(d, mu_d, std_d),
-                dropout_active=False, target_mode=trainer.spec.target_mode)
+                dropout_active=False,
+                target_mode=self.trainer.spec.target_mode)
         return state, step
 
-    def run(dev, dtype, rows=slice(None), reference=True, replay=None,
-            remap=None, gaps=None):
+    def modes(self, model, sort_records=None, replay=None, remap=None,
+              gaps=None, clamps=None, clamp_replay=None):
+        """The run's ``sort_mode`` (a network of SORTING) and
+        ``clamp_mode`` over ``model`` (a clipped optimizer's), recording
+        into ``sort_records`` and ``clamps`` or replaying ``replay`` and
+        ``clamp_replay``."""
+        stack = contextlib.ExitStack()
+        if self.sorts:
+            stack.enter_context(sort_mode(sort_records, replay, remap, gaps))
+        if self.replays_clamps and (clamps is not None
+                                    or clamp_replay is not None):
+            stack.enter_context(clamp_mode(model, clamps, clamp_replay))
+        return stack
+
+    def run(self, dev, dtype, rows=slice(None), reference=True, replay=None,
+            remap=None, gaps=None, clamps=None, clamp_replay=None):
         """Losses, params after each step, and the steps' sorts.
         Training's optimizer; on the CPU Adam is ``Float32CountAdam``
-        unless not ``reference``."""
-        model = build(dev, dtype)
-        if adam and dev == "cpu" and reference:
+        unless not ``reference``.  ``clamps`` records the clamp
+        decisions, ``clamp_replay`` replays them."""
+        import torch
+
+        from deepards_tpu_torch.train.steps import make_optimizer
+
+        conf = self.conf
+        model = self.build(dev, dtype)
+        if self.adam and dev == "cpu" and reference:
             optimizer = Float32CountAdam(model.parameters(),
                                          conf.learning_rate)
         else:
@@ -1247,70 +1391,210 @@ def _train_card_vs_cpu(device, name, fields):
                 model.parameters(), conf.optimizer,
                 learning_rate=conf.learning_rate,
                 weight_decay=conf.weight_decay,
-                clip_grad=bool(conf.get("clip_grad")),
-                clip_val=conf.clip_val)
-        state, step = steps(dev, dtype, model, optimizer)
-
-        def three():
-            losses, params = [], []
+                clip_grad=self.clip, clip_val=conf.clip_val)
+        state, step = self.steps(dev, dtype, model, optimizer)
+        records = []
+        losses, params = [], []
+        with self.modes(model, records, replay, remap, gaps, clamps,
+                        clamp_replay):
             for k in range(3):
-                losses.append(float(step(state, *batch_of(k, dev, dtype,
-                                                          rows))))
+                losses.append(float(step(state, *self.batch_of(
+                    k, dev, dtype, rows))))
                 # a copy: .to() of a float64 CPU tensor is the tensor
                 # itself, which the next step changes
                 params.append({n: v.detach().to("cpu", torch.float64,
                                                 copy=True)
                                for n, v in model.state_dict().items()})
-            return losses, params
-
-        (losses, params), records = sorting(three, replay, remap, gaps)
         return losses, params, records
 
-    def gradients(dev, dtype, k, replay=None):
-        """Every param's gradient (before any clamp) at the init for
-        batch k, and the step's sorts: the train step with an optimizer
-        that only zeroes the grads (torch's foreach Nesterov SGD adds its
-        momentum into them in place)."""
-        model = build(dev, dtype)
-        state, step = steps(dev, dtype, model, GradientsOnly(model))
-        _, records = sorting(lambda: step(state, *batch_of(k, dev, dtype)),
-                             replay)
-        return {n: p.grad.detach().to("cpu", torch.float64, copy=True)
-                for n, p in model.named_parameters()}, records
+    def gradients(self, dev, dtype, k, replay=None):
+        """The gradients (before any clamp) of the ``graded`` tensors at
+        the init for batch k, and the step's sorts: the train step with
+        an optimizer that only zeroes the grads (torch's foreach Nesterov
+        SGD adds its momentum into them in place)."""
+        import torch
 
-    def over(got, want, held=None, skip=None):
-        """Per held tensor, the count of elements beyond the params limit
-        that ``skip`` does not mask; tensors with none left out."""
-        counts = {}
-        for n in held or want:
-            bad = (got[n] - want[n]).abs() > limit
-            if skip is not None and n in skip:
-                bad &= ~skip[n]
-            if bad.any():
-                counts[n] = int(bad.sum())
-        return counts
+        model = self.build(dev, dtype)
+        state, step = self.steps(dev, dtype, model, GradientsOnly(model))
+        records = []
+        with self.modes(model, records, replay):
+            step(state, *self.batch_of(k, dev, dtype))
+        grads = dict(model.named_parameters())
+        return {n: grads[n].grad.detach().to("cpu", torch.float64, copy=True)
+                for n in self.graded()}, records
 
-    def largest(got, want):
-        errs = {n: float((got[n] - want[n]).abs().max()) for n in want}
-        worst = max(errs, key=errs.get)
-        return errs[worst], worst
+    def noise_level(self, exact, single_cpu):
+        """Adam's first update, lr * g / (|g| + eps), of an element that
+        gradients within 4x the CPU's own float32 error in its tensor of
+        the float64 one could move by more than the limit."""
+        if not self.adam:
+            return None
+        lr = self.conf.learning_rate
+
+        def first_update(g):
+            return lr * g / (g.abs() + Float32CountAdam.EPS)
+
+        level = {}
+        for n in self.names:
+            error = 4 * (single_cpu[0][n] - exact[0][n]).abs().max()
+            level[n] = (first_update(exact[0][n] + error)
+                        - first_update(exact[0][n] - error)) > self.limit
+        return level
+
+    def compare(self, got_steps, want_steps, held, skip=None):
+        """After each step against ``want_steps``: the largest miss, and
+        the elements over the limit, held (per tensor) and all (Adam's
+        noise level is its first step's)."""
+        out = []
+        for k, (got, want) in enumerate(zip(got_steps, want_steps)):
+            err, at = largest(got, want)
+            out.append({"max_abs": err, "max_abs_at": at,
+                        "over_atol_held": over(got, want, self.limit, held,
+                                               skip if k == 0 else None),
+                        "over_atol_all": sum(over(got, want,
+                                                  self.limit).values())})
+        return out
+
+
+def cpu_float64_side(name):
+    """The CPU's float64 side of ``train_card_vs_cpu``: the ``graded``
+    gradients of the 3 batches with their sorts, the 3 steps with their
+    sort picks and clamp decisions (which every other run replays), and
+    the float64 checks that read the CPU alone."""
+    import torch
+
+    t0 = time.perf_counter()
+    with one_block_a_stage(name, "card_vs_cpu"):
+        c = CardVsCpu(name)
+        exact, grad_sorts = [], []
+        if c.graded():
+            for k in range(3):
+                g, records = c.gradients("cpu", torch.float64, k)
+                exact.append(g)
+                grad_sorts.append(records)
+        clamps = []
+        losses, steps, sorts = c.run("cpu", torch.float64, clamps=clamps)
+        moved = {n: float((steps[-1][n] - c.init[n].double()).abs().max())
+                 for n in c.by_gradient}
+        adam_planted = None
+        if c.adam:
+            # torch's own Adam: float64 bias corrections
+            _, torch_steps, _ = c.run("cpu", torch.float64, reference=False)
+            adam_planted = sum(over(torch_steps[-1], steps[-1],
+                                    c.limit).values())
+    return {"exact": exact, "grad_sorts": grad_sorts, "losses": losses,
+            "steps": steps, "sorts": sorts, "clamps": clamps,
+            "moved": moved, "adam_planted": adam_planted,
+            "seconds": time.perf_counter() - t0}
+
+
+def cpu_float32_side(name, f64):
+    """The CPU's float32 side: the ``graded`` gradients (float64's picks),
+    the 3 steps replaying float64's picks and clamp decisions, and the
+    CPU against itself with the batch's rows permuted (its readings)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with one_block_a_stage(name, "card_vs_cpu"):
+        c = CardVsCpu(name)
+        single = [c.gradients("cpu", torch.float32, k,
+                              f64["grad_sorts"][k])[0]
+                  for k in range(len(f64["exact"]))]
+        losses, steps, _ = c.run("cpu", torch.float32, replay=f64["sorts"],
+                                 clamp_replay=f64["clamps"])
+        skip = c.noise_level(f64["exact"], single)
+        perm_losses, perm_steps, _ = c.run(
+            "cpu", torch.float32, rows=c.permuted, replay=f64["sorts"],
+            remap=remapped(c.permuted, c.nested),
+            clamp_replay=f64["clamps"])
+        spread = {"max_abs_loss_by_step": np.abs(np.subtract(
+            perm_losses, losses)).tolist(),
+            "after_steps": c.compare(perm_steps, steps, c.held(True), skip)}
+    return {"single": single, "losses": losses, "steps": steps,
+            "spread": spread, "seconds": time.perf_counter() - t0}
+
+
+class LocalSides:
+    """The CPU sides of one network computed in this process, float64
+    first."""
+
+    def __init__(self, name):
+        self.name = name
+        self._f64 = None
+
+    def float64(self):
+        if self._f64 is None:
+            self._f64 = cpu_float64_side(self.name)
+        return self._f64
+
+    def float32(self):
+        return cpu_float32_side(self.name, self.float64())
+
+
+def flipped(records, held):
+    """``records`` (a float64 run's clamp decisions, a step's
+    ``_foreach_clamp_min_`` call then its ``_foreach_clamp_max_``) with
+    the first decision on a tensor of ``held`` replayed to the other
+    bound: (the records, that tensor, its step), or None when no held
+    tensor was clamped."""
+    for call, masks in enumerate(records):
+        for n in held:
+            hits = masks[n].flatten().nonzero() if n in masks else ()
+            if len(hits):
+                out = [{k: v.clone() for k, v in ms.items()}
+                       for ms in records]
+                other = call + 1 if call % 2 == 0 else call - 1
+                e = int(hits[0])
+                out[call][n].view(-1)[e] = False
+                out[other][n].view(-1)[e] = True
+                return out, n, call // 2 + 1
+    return None
+
+
+def _train_card_vs_cpu(device, name, fields, cpu=None):
+    """The checks of ``train_card_vs_cpu``: the card's runs against the
+    CPU's sides (``cpu``: ``LocalSides`` unless given)."""
+    import torch
+
+    cpu = cpu or LocalSides(name)
+    c = CardVsCpu(name)
+    fields["batch"] = c.batch
+    limit = c.limit
+    f64 = cpu.float64()
+    # the card's runs, each replaying the CPU float64 run's sort picks and
+    # clamp decisions: the float32 gradients, the float64 and float32
+    # steps, and the planted clamp decision flipped
+    dev_single = [c.gradients(device, torch.float32, k,
+                              f64["grad_sorts"][k])[0]
+                  for k in range(len(f64["exact"]))]
+    dev_runs, gaps = {}, {}
+    for dtype_name, dtype in (("float64", torch.float64),
+                              ("float32", torch.float32)):
+        gaps[dtype_name] = []
+        dev_runs[dtype_name] = c.run(device, dtype, replay=f64["sorts"],
+                                     gaps=gaps[dtype_name],
+                                     clamp_replay=f64["clamps"])[:2]
+    held32 = c.held(True)
+    flip = None
+    if c.replays_clamps:
+        flip = flipped(f64["clamps"], held32)
+        if flip is None:
+            raise AssertionError("no held tensor was clamped: the clamp "
+                                 "replay would go unchecked")
+        _, flip_steps, _ = c.run(device, torch.float32, replay=f64["sorts"],
+                                 clamp_replay=flip[0])
+    f32 = cpu.float32()
 
     failed = []
-    exact = single = {}
-    if by_gradient or adam:
-        # float64 on the CPU; float32 on each side with float64's picks
-        exact, grad_sorts = zip(*[gradients("cpu", torch.float64, k)
-                                  for k in range(3)])
-        single = {side: [gradients(dev, torch.float32, k, grad_sorts[k])[0]
-                         for k in range(3)]
-                  for side, dev in (("cpu", "cpu"), ("device", device))}
-    for n in by_gradient:
+    for n in c.by_gradient:
+        exact = f64["exact"]
         scale = max(float(g[n].abs().max()) for g in exact)
         check = fields["by_gradient"][n] = {
             "scale": scale,
             "grad_err": {side: [float((g[k][n] - exact[k][n]).abs().max())
                                 / scale for k in range(3)]
-                         for side, g in single.items()},
+                         for side, g in (("cpu", f32["single"]),
+                                         ("device", dev_single))},
             "grad_controls": {
                 "zero_gradient": [float(g[n].abs().max()) / scale
                                   for g in exact],
@@ -1326,78 +1610,47 @@ def _train_card_vs_cpu(device, name, fields):
         if max(check["grad_err"]["device"]) > grad_limit:
             failed.append("{} gradient vs float64 {}".format(
                 n, check["grad_err"]["device"]))
-    # Adam's first update, lr * g / (|g| + eps), of an element that
-    # gradients within 4x the CPU's own float32 error in its tensor of the
-    # float64 one could move by more than the limit
-    noise_level = None
-    if adam:
-        def first_update(g):
-            return conf.learning_rate * g / (g.abs() + Float32CountAdam.EPS)
-
-        noise_level = {}
-        for n in names:
-            error = 4 * (single["cpu"][0][n] - exact[0][n]).abs().max()
-            noise_level[n] = (first_update(exact[0][n] + error)
-                              - first_update(exact[0][n] - error)) > limit
+    noise_level = c.noise_level(f64["exact"], f32["single"])
+    if c.adam:
         fields["skipped_noise_level"] = {
             n: int(m.sum()) for n, m in noise_level.items() if m.any()}
-    del single
-    # float64 first: its CPU run's sorts are replayed in every other run
-    exact_steps = exact_sorts = None
-    for dtype_name, dtype in (("float64", torch.float64),
-                              ("float32", torch.float32)):
-        f32 = dtype == torch.float32
-        cpu_losses, cpu_steps, cpu_sorts = run("cpu", dtype,
-                                               replay=exact_sorts)
-        gaps = []
-        dev_losses, dev_steps, _ = run(device, dtype,
-                                       replay=exact_sorts or cpu_sorts,
-                                       gaps=gaps)
-        held = [n for n in cpu_steps[0] if not (f32 and n in by_gradient)]
-        held_steps = (1, 2, 3)
-        if f32:
-            held_steps = held_steps[:1 if adam else
-                                    FLOAT32_PARAM_STEPS.get(name, 3)]
-        skip = noise_level if f32 and adam else None
+    fields["clamp_replay"] = {
+        "replayed": c.replays_clamps, "calls": len(f64["clamps"]),
+        "clamped": sum(int(m.sum()) for masks in f64["clamps"]
+                       for m in masks.values())}
+    for dtype_name, side in (("float64", f64), ("float32", f32)):
+        f32_run = dtype_name == "float32"
+        cpu_losses, cpu_steps = side["losses"], side["steps"]
+        dev_losses, dev_steps = dev_runs[dtype_name]
+        held = c.held(f32_run)
+        held_steps = c.held_steps[dtype_name]
+        skip = noise_level if f32_run and c.adam else None
         loss_errs = np.abs(np.subtract(dev_losses, cpu_losses))
         # a step's loss is the forward's, before its update
-        held_losses = 2 if f32 and adam else 3
+        held_losses = 2 if f32_run and c.adam else 3
         loss_err = float(np.max(loss_errs[:held_losses]))
         record = fields[dtype_name] = {
             "losses_device": dev_losses, "losses_cpu": cpu_losses,
             "max_abs_loss_by_step": loss_errs.tolist(),
             "losses_held": held_losses, "params_held_after_steps": held_steps}
-        if sorts:
+        if c.sorts:
             # the card's own sort by step: within its bound, and the
             # planted sort one rank off beyond it
-            record["own_sort"] = gaps
-            if len(gaps) != 3:
+            g = record["own_sort"] = gaps[dtype_name]
+            if len(g) != 3:
                 failed.append("{}: {} sorts replayed in 3 steps".format(
-                    dtype_name, len(gaps)))
-            if any(g["own"] > g["bound"] * (1 + 1e-9) for g in gaps):
+                    dtype_name, len(g)))
+            if any(x["own"] > x["bound"] * (1 + 1e-9) for x in g):
                 failed.append("{} the card's own sort {}".format(
-                    dtype_name, gaps))
-            if any(g["rank_off"] <= g["bound"] for g in gaps):
+                    dtype_name, g))
+            if any(x["rank_off"] <= x["bound"] for x in g):
                 raise AssertionError("the {} sort check would pass a sort "
                                      "one rank off: {}".format(dtype_name,
-                                                               gaps))
+                                                               g))
         if loss_err > TRAIN_STEP_ATOL["loss"]:
             failed.append("{} loss {}".format(dtype_name, loss_err))
-
-        def compare(got_steps):
-            """After each step against the CPU's: the largest miss, and
-            the elements over the limit, held (per tensor) and all."""
-            out = []
-            for k, (got, want) in enumerate(zip(got_steps, cpu_steps)):
-                err, at = largest(got, want)
-                # Adam's noise level is its first step's
-                out.append({"max_abs": err, "max_abs_at": at,
-                            "over_atol_held": over(got, want, held,
-                                                   skip if k == 0 else None),
-                            "over_atol_all": sum(over(got, want).values())})
-            return out
-
-        for k, reading in enumerate(compare(dev_steps), 1):
+        for k, reading in enumerate(c.compare(dev_steps, cpu_steps, held,
+                                              skip), 1):
             record["after_step_{}".format(k)] = reading
             if k in held_steps and reading["over_atol_held"]:
                 failed.append("{} after step {}: elements over {}: {}".format(
@@ -1407,13 +1660,13 @@ def _train_card_vs_cpu(device, name, fields):
         # most where they move the head's bias less than the limit (a
         # patient's class from step to step pulls it back and forth)
         last = held_steps[-1]
-        moved = {n: float((cpu_steps[last - 1][n] - init[n].double())
+        moved = {n: float((cpu_steps[last - 1][n] - c.init[n].double())
                           .abs().max()) for n in held}
-        fault = head_bias if moved.get(head_bias, 0.0) > limit else max(
+        fault = c.head_bias if moved.get(c.head_bias, 0.0) > limit else max(
             moved, key=moved.get)
         planted = dict(dev_steps[last - 1])
-        planted[fault] = init[fault].double()
-        caught = over(planted, cpu_steps[last - 1], held,
+        planted[fault] = c.init[fault].double()
+        caught = over(planted, cpu_steps[last - 1], limit, held,
                       skip if last == 1 else None)
         record["planted"] = {"fault": fault + " not updated",
                              "after_step": last,
@@ -1421,51 +1674,181 @@ def _train_card_vs_cpu(device, name, fields):
         if not caught:
             raise AssertionError("the {} check would pass {} left at its "
                                  "init".format(dtype_name, fault))
-        if f32:
+        if f32_run:
             # each side's float32 against float64, the same picks
-            for side, got_steps in (("cpu", cpu_steps),
-                                    ("device", dev_steps)):
-                record["{}_vs_float64".format(side)] = [
+            for name_, got_steps in (("cpu", cpu_steps),
+                                     ("device", dev_steps)):
+                record["{}_vs_float64".format(name_)] = [
                     {"max_abs": largest(got, want)[0],
-                     "over_atol_held": over(got, want, held)}
-                    for got, want in zip(got_steps, exact_steps)]
+                     "over_atol_held": over(got, want, limit, held)}
+                    for got, want in zip(got_steps, f64["steps"])]
             # the CPU against itself with the batch's rows permuted
-            perm_losses, perm_steps, _ = run("cpu", dtype, rows=permuted,
-                                             replay=exact_sorts,
-                                             remap=remapped(permuted,
-                                                            nested))
-            spread = record["cpu_rows_permuted"] = {
-                "max_abs_loss_by_step": np.abs(np.subtract(
-                    perm_losses, cpu_losses)).tolist(),
-                "after_steps": compare(perm_steps)}
-            del perm_steps
+            spread = record["cpu_rows_permuted"] = side["spread"]
             if any(spread["after_steps"][k - 1]["over_atol_held"]
                    for k in held_steps):
                 raise AssertionError("the float32 check fails the CPU "
                                      "against itself: {}".format(spread))
+            if flip is not None:
+                # planted: one clamp decision replayed to the other bound
+                _, tensor, step = flip
+                caught = over(flip_steps[step - 1], cpu_steps[step - 1],
+                              limit, held)
+                record["planted_clamp_flip"] = {
+                    "tensor": tensor, "step": step,
+                    "over_atol": sum(caught.values())}
+                if not caught:
+                    raise AssertionError(
+                        "the float32 check would pass a clamp decision "
+                        "flipped in {} at step {}".format(tensor, step))
         else:
-            for n in by_gradient:
-                moved = float((cpu_steps[-1][n] - init[n].double())
-                              .abs().max())
-                if moved <= limit:
+            for n in c.by_gradient:
+                if f64["moved"][n] <= limit:
                     raise AssertionError("3 steps move {} by {}: the float64 "
                                          "check could not fail".format(
-                                             n, moved))
-            if adam:
-                # torch's own Adam on the CPU: float64 bias corrections
-                _, torch_steps, _ = run("cpu", dtype, reference=False)
-                caught = over(torch_steps[-1], cpu_steps[-1])
+                                             n, f64["moved"][n]))
+            if c.adam:
                 record["planted_float64_bias_correction"] = {
-                    "after_step": 3, "over_atol": sum(caught.values())}
-                if not caught:
+                    "after_step": 3, "over_atol": f64["adam_planted"]}
+                if not f64["adam_planted"]:
                     raise AssertionError(
                         "the float64 check would pass Adam with float64 "
                         "bias corrections")
-            exact_steps, exact_sorts = cpu_steps, cpu_sorts
+    fields["cpu_seconds"] = {"float64": f64["seconds"],
+                             "float32": f32["seconds"]}
     if failed:
         raise AssertionError("{} card vs CPU after 3 steps: {}".format(
             name, "; ".join(failed)))
     return fields
+
+
+def _pack(obj, arrays):
+    """``obj`` (dicts, lists, tuples, tensors and JSON scalars) as a JSON
+    skeleton whose tensors are keys of ``arrays``."""
+    import torch
+
+    if torch.is_tensor(obj):
+        key = "a{}".format(len(arrays))
+        arrays[key] = obj.numpy()
+        return {"array": key}
+    if isinstance(obj, dict):
+        return {"dict": [[k, _pack(v, arrays)] for k, v in obj.items()]}
+    if isinstance(obj, (list, tuple)):
+        return {"list": [_pack(v, arrays) for v in obj]}
+    return {"value": obj}
+
+
+def _unpack(skeleton, arrays):
+    import torch
+
+    if "array" in skeleton:
+        return torch.from_numpy(arrays[skeleton["array"]])
+    if "dict" in skeleton:
+        return {k: _unpack(v, arrays) for k, v in skeleton["dict"]}
+    if "list" in skeleton:
+        return [_unpack(v, arrays) for v in skeleton["list"]]
+    return skeleton["value"]
+
+
+def save_side(path, obj):
+    """A CPU side's results as an ``.npz`` (its structure in JSON)."""
+    arrays = {}
+    skeleton = _pack(obj, arrays)
+    np.savez(path, skeleton=np.asarray(json.dumps(skeleton)), **arrays)
+    return path
+
+
+def load_side(path):
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    return _unpack(json.loads(str(arrays.pop("skeleton"))), arrays)
+
+
+def _cpu_worker_init(threads):
+    import torch
+
+    torch.set_num_threads(threads)
+
+
+def _cpu_job(kind, name, out, workdir):
+    """A CPU side in the worker, saved to ``out``: (out, busy seconds).
+    ``kind`` "float64" or "float32" of network ``name`` (the latter reads
+    the former's file under ``workdir``), or "similarity", the
+    sub-cohort matrix of ``dtw_similarity``."""
+    t0 = time.perf_counter()
+    if kind == "float64":
+        side = cpu_float64_side(name)
+    elif kind == "float32":
+        side = cpu_float32_side(name, load_side(os.path.join(
+            workdir, "cpu_{}_float64.npz".format(name))))
+    else:
+        side = sub_cohort_similarity(tempfile.mkdtemp(dir=workdir), "cpu")
+    save_side(out, side)
+    return out, time.perf_counter() - t0
+
+
+class WorkerSides(LocalSides):
+    """One network's CPU sides read from the worker's results."""
+
+    def __init__(self, worker, name):
+        super().__init__(name)
+        self.worker = worker
+
+    def float64(self):
+        if self._f64 is None:
+            self._f64 = self.worker.result(self.name, "float64")
+        return self._f64
+
+    def float32(self):
+        return self.worker.result(self.name, "float32")
+
+
+class CpuSides:
+    """The CPU sides of card-vs-CPU checks run in one worker process
+    (spawned, ``threads`` torch threads) while the card runs its own sides
+    and the phases before them.  ``jobs``: (kind, network) in the order
+    to run, each network's "float64" pass before its "float32" pass (the
+    card's runs of a network wait only for the former: its picks and
+    clamp decisions), and ("similarity", None) for ``dtw_similarity``'s
+    sub-cohort.  Each result comes back as an ``.npz`` under ``workdir``;
+    a job that fails raises where its result is read."""
+
+    def __init__(self, jobs, workdir, threads):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.names = {name for _, name in jobs if name}
+        self.pool = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init, initargs=(threads,))
+        self.threads = threads
+        self.jobs, self.busy, self.wait = {}, {}, {}
+        for kind, name in jobs:
+            out = os.path.join(workdir, "cpu_{}_{}.npz".format(name, kind))
+            self.jobs[name, kind] = self.pool.submit(
+                _cpu_job, kind, name, out, workdir)
+
+    def result(self, name, kind):
+        t0 = time.perf_counter()
+        path, busy = self.jobs[name, kind].result()
+        self.wait[name, kind] = time.perf_counter() - t0
+        self.busy[name, kind] = busy
+        return load_side(path)
+
+    def sides(self, name):
+        return WorkerSides(self, name)
+
+    def report(self):
+        return {"threads": self.threads, "jobs": len(self.jobs),
+                "busy_s": sum(self.busy.values()),
+                "wait_s": sum(self.wait.values()),
+                "by_job": {"{} {}".format(*k): [self.busy[k], self.wait[k]]
+                           for k in self.busy}}
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+CPU_SIDES = None  # the worker's ``CpuSides`` in a whole run of main()
 
 
 def softmax_probs(logits):
@@ -1620,10 +2003,10 @@ def train_numbers(workdir, device, name="config1",
 
     conf = config_conf(name)
     batch = conf.batch_size
-    ds = random_cache(np.random.default_rng(SEED + 3), windows, conf)
-    n = windows
     out = {}
     for mode, graphs in modes:
+        n = windows if graphs else min(windows, EAGER_MEASURE_WINDOWS)
+        ds = random_cache(np.random.default_rng(SEED + 3), n, conf)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         baseline = torch.cuda.memory_allocated()
@@ -3099,12 +3482,11 @@ def sequence_path(workdir, name, device="cuda"):
                 workdir, device, name, (("graphed", True),),
                 SEQUENCE_MEASURE_WINDOWS,
                 **(dict(NEW_DEPTH["reps"], profile_reps=1)
-                   if name in LSTM_ONLY else dict(profile_reps=2)))
+                   if name in LSTM_ONLY else NEW_DEPTH["reps"]))
 
     stages = [("train", train),
-              ("card_vs_cpu", check_card_vs_cpu(name, device)),
-              ("graph_vs_eager", check_graph_vs_eager(workdir, name, device,
-                                                      GRAPH_STEPS)),
+              # 2 steps from the fold's state (cut from 8 for time)
+              ("graph_vs_eager", check_graph_vs_eager(workdir, name, device)),
               ("serve", serve), ("predict", predict)]
     if name in NESTED_NETWORKS:
         stages.append(("padding", padding))
@@ -3113,6 +3495,8 @@ def sequence_path(workdir, name, device="cuda"):
         if name == REAL_SIZE_NETWORK:
             stages.append(("real_size", lambda fields: fields.update(
                 real_size_step=nested_real_size(workdir, device, name))))
+    # last: the worker computes the CPU's side meanwhile
+    stages.append(("card_vs_cpu", check_card_vs_cpu(name, device)))
     return run_stages(name, stages, device)
 
 
@@ -3273,7 +3657,8 @@ def nested_real_size(workdir, device, name):
 # patients (its ``hetero`` defaults: train_n 40, test_n 6), 60 windows each
 SIM_PATIENTS, SIM_WINDOWS, SIM_N_RANDOM = 80, 60, 50
 SIM_KEEP = 256  # pairs of the sweep's first chunk held to dtw_reference
-SUB_PATIENTS, SUB_N_RANDOM = 8, 4  # the sub-cohort held card vs CPU
+# the sub-cohort held card vs CPU (cut from 8 patients for time)
+SUB_PATIENTS, SUB_N_RANDOM = 6, 4
 
 
 def cohort_dataset(workdir, data, patho, n_windows, total_kfolds=None):
@@ -3304,6 +3689,39 @@ def cohort_dataset(workdir, data, patho, n_windows, total_kfolds=None):
                           total_kfolds=total_kfolds)
 
 
+def similarity_cohort(n_patients=SIM_PATIENTS, n_windows=SIM_WINDOWS,
+                      nb=S):
+    """``dtw_similarity``'s seeded windows and classes: ``n_patients`` x
+    ``n_windows`` windows of (nb, 1, 224), half of the patients ARDS, each
+    patient's flow at its own scale."""
+    rng = np.random.default_rng(SEED + 7)
+    patho = np.arange(n_patients) % 2
+    data = make_windows(rng, n_patients * n_windows, nb)
+    data *= np.repeat(rng.uniform(0.6, 1.4, n_patients),
+                      n_windows)[:, None, None, None].astype(np.float32)
+    return data, patho
+
+
+def sub_cohort_similarity(workdir, device, data=None, patho=None,
+                          n_windows=SIM_WINDOWS):
+    """The ``random`` inter-patient matrix of the first SUB_PATIENTS
+    patients of ``similarity_cohort`` (or of ``data``) on ``device``:
+    {values, patients}."""
+    import torch
+
+    from deepards_tpu_torch.dtw.lib import find_patient_similarity
+
+    if data is None:
+        data, patho = similarity_cohort(n_windows=n_windows)
+    sub = cohort_dataset(workdir, data[:SUB_PATIENTS * n_windows],
+                         patho[:SUB_PATIENTS], n_windows)
+    mat = find_patient_similarity(sub, dist_method="random",
+                                  n_random=SUB_N_RANDOM,
+                                  rng=np.random.default_rng(1), device=device)
+    return {"values": torch.from_numpy(mat.values),
+            "patients": list(mat.patients)}
+
+
 def phase_dtw_similarity(workdir, device="cuda", per_cell=None,
                          n_patients=SIM_PATIENTS, n_windows=SIM_WINDOWS,
                          nb=S, train_n=40, test_n=6):
@@ -3326,11 +3744,7 @@ def phase_dtw_similarity(workdir, device="cuda", per_cell=None,
     from deepards_tpu_torch.dtw.lib import SweepTimer, find_patient_similarity
     from deepards_tpu_torch.ops.dtw import dtw_reference
 
-    rng = np.random.default_rng(SEED + 7)
-    patho = np.arange(n_patients) % 2
-    data = make_windows(rng, n_patients * n_windows, nb)
-    data *= np.repeat(rng.uniform(0.6, 1.4, n_patients),
-                      n_windows)[:, None, None, None].astype(np.float32)
+    data, patho = similarity_cohort(n_patients, n_windows, nb)
     ds = cohort_dataset(workdir, data, patho, n_windows)
     n = nb * C * L
     pairs = n_patients * (n_patients - 1) // 2 * min(SIM_N_RANDOM, n_windows)
@@ -3355,15 +3769,17 @@ def phase_dtw_similarity(workdir, device="cuda", per_cell=None,
         raise AssertionError("{} pairs of the sweep vs dtw_reference: max "
                              "abs {}".format(SIM_KEEP, kept_err))
 
-    sub = cohort_dataset(workdir, data[:SUB_PATIENTS * n_windows],
-                         patho[:SUB_PATIENTS], n_windows)
     t1 = time.perf_counter()
-    sub_mats = [find_patient_similarity(
-        sub, dist_method="random", n_random=SUB_N_RANDOM,
-        rng=np.random.default_rng(1), device=dev) for dev in (device, "cpu")]
+    got = sub_cohort_similarity(workdir, device, data, patho, n_windows)
+    # the CPU's matrix: the worker's, which computed it meanwhile, in a
+    # whole run; else here
+    if CPU_SIDES is not None and (None, "similarity") in CPU_SIDES.jobs:
+        want = CPU_SIDES.result(None, "similarity")
+    else:
+        want = sub_cohort_similarity(workdir, "cpu", data, patho, n_windows)
     sub_seconds = time.perf_counter() - t1
-    sub_err = float(np.abs(sub_mats[0].values - sub_mats[1].values).max())
-    if sub_err != 0.0 or sub_mats[0].patients != sub_mats[1].patients:
+    sub_err = float((got["values"] - want["values"]).abs().max())
+    if sub_err != 0.0 or got["patients"] != want["patients"]:
         raise AssertionError("sub-cohort matrix, device vs CPU: max abs "
                              "{}".format(sub_err))
 
@@ -4202,8 +4618,10 @@ def two_d_numbers(workdir, device, name):
     out = {"batch": batch, "compute_dtype": "bfloat16",
            "runner_build_seconds": build_seconds}
     for stage, runner in runners.items():
-        out[stage if ppnet else "train"] = step_profile(runner.train)
-    out["eval"] = step_profile(runners["last" if ppnet else "train"].eval)
+        out[stage if ppnet else "train"] = step_profile(runner.train,
+                                                        **NEW_DEPTH["reps"])
+    out["eval"] = step_profile(runners["last" if ppnet else "train"].eval,
+                               **NEW_DEPTH["reps"])
     gather, spent = ds.gather, [0.0]
 
     def timed_gather(*args, **kwargs):
@@ -4391,13 +4809,17 @@ def train_detector(workdir, device, name, epochs, extra):
 # blocks, groups, widths and stem) for card vs CPU, where the CPU's side
 # of the full depth would take minutes, and for the deep ones' graphed
 # vs eager, whose four runners at full depth took 7-20 s a network
-# (float32 with TF32 off, an H100 at 700 W); their numbers at full depth
+# (float32 with TF32 off, an H100 at 700 W); their numbers at full depth.
+# For the whole script's time, the sequence networks' graphed vs eager
+# takes "graph_steps" too (8 before), their step profiles and the 2D
+# networks' "reps" (20 / 3 / 2 and 20 / 3 / 5 before), the backbones'
+# profile one step (2 before).
 NEW_DEPTH = {
     "measure_windows": 256,
     "reps": dict(reps=5, b2b_reps=1, profile_reps=2),
     "graph_steps": 2,
     "backbone_numbers": dict(windows=64, reps=3, b2b_reps=0,
-                             profile_reps=2),
+                             profile_reps=1),
     "one_block_a_stage": {
         "card_vs_cpu": ("cnn_linear_senet154", "cnn_linear_se_resnet50",
                         "cnn_linear_se_resnext50_32x4d"),
@@ -4407,22 +4829,36 @@ NEW_DEPTH = {
 }
 
 
-def run_stages(name, stages, device):
+def run_stages(name, stages, device, flags=None, launches=None):
     """Run ``stages`` ([(stage, fn)], each ``fn(fields)`` filling
-    ``fields`` and returning failures, or raising one) for network
-    ``name``, timing each on the host's clock; a stage that fails leaves
-    the next ones to run.  Returns (fields, failures)."""
+    ``fields`` and returning failures, or raising one) for ``name`` (a
+    network, whose flags the fields name unless ``flags`` are given),
+    timing each on the host's clock; a stage that fails leaves the next
+    ones to run.  With ``launches`` (a dict), each stage's DTW launches go
+    into it by stage: counted from 0 just before the stage and read just
+    after, or the stage's own count where it leaves one in
+    ``fields[stage]["launches"]`` (a stage that checks or times the
+    kernel after its path).  Returns (fields, failures)."""
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+
     fields = {"card": nvidia_smi_line() if device == "cuda" else None,
-              "flags": CONFIG_FLAGS[name], "seconds": {}}
+              "flags": CONFIG_FLAGS[name] if flags is None else flags,
+              "seconds": {}}
     failed = []
     for stage, fn in stages:
         t0 = time.perf_counter()
+        if launches is not None:
+            dtw_ops.launches = 0
         try:
             failures = fn(fields) or ()
         except AssertionError as e:
             failures = [str(e)]
         failed += ["{} {}: {}".format(name, stage, f) for f in failures]
         fields["seconds"][stage] = time.perf_counter() - t0
+        if launches is not None:
+            out = fields.get(stage)
+            launches[stage] = out["launches"] if isinstance(out, dict) \
+                and "launches" in out else dtw_ops.launches
     fields["phase_seconds"] = sum(fields["seconds"].values())
     print("{}: {} s {}".format(name, fields["phase_seconds"],
                                fields["seconds"]), flush=True)
@@ -4498,9 +4934,8 @@ def siamese_path(workdir, name, device="cuda"):
     if not pretrained:
         stages.append(("triplets", lambda fields: fields.update(
             triplets=triplet_check(workdir, name))))
-    stages += [("card_vs_cpu", check_card_vs_cpu(name, device)),
-               ("graph_vs_eager", check_graph_vs_eager(workdir, name,
-                                                       device))]
+    stages.append(("graph_vs_eager", check_graph_vs_eager(workdir, name,
+                                                          device)))
     if pretrained:
         def serve(fields):
             fields["train_to_serve"] = train_to_serve(
@@ -4520,6 +4955,8 @@ def siamese_path(workdir, name, device="cuda"):
     elif device == "cuda":
         stages.append(("numbers", lambda fields: fields.update(
             numbers=siamese_numbers(workdir, device, name))))
+    # last: the worker computes the CPU's side meanwhile
+    stages.append(("card_vs_cpu", check_card_vs_cpu(name, device)))
     return run_stages(name, stages, device)
 
 
@@ -4743,15 +5180,544 @@ def backbone_path(workdir, name, device="cuda"):
     stages = []
     if name in BACKBONE_BY_BLOCK:
         stages.append(("train", train))
-        if not ppnet:
-            stages.append(("card_vs_cpu", card_vs_cpu))
     stages.append(("graph_vs_eager", graphs))
     if device == "cuda" and not ppnet:
         stages.append(("numbers", lambda fields: fields.update(
             numbers=train_numbers(workdir, device, name,
                                   (("graphed", True),),
                                   **NEW_DEPTH["backbone_numbers"]))))
+    if name in BACKBONE_BY_BLOCK and not ppnet:
+        # last: the worker computes the CPU's side meanwhile
+        stages.append(("card_vs_cpu", card_vs_cpu))
     return run_stages(name, stages, device)
+
+
+REAL_PATIENT_WINDOWS = 1440  # a 24 h patient: 28,800 breaths of S = 20
+DTW_KEEP = 256  # the real-size patient's pairs held to dtw_reference
+ANALYTICS_KFOLDS = 5  # config 1's folds, 1 epoch each (its yml: 10)
+# the DTW run's breaths a patient: twice the smoke cohort's, whose last
+# fold tests one patient, so that this run's tests two and a row can be
+# moved between them
+DTW_COHORT_BREATHS = 800
+CAM_KFOLDS = 2  # the cam studies' runs: 2 folds x 1 epoch
+CAM_SAMPS = 16  # the cam CLIs' -n: windows a fold
+STUDY_ATOL = 1e-5  # cams (of max(1, |x|)), outputs and splice logits
+
+
+def analytics_run(cohort, device, flags, name, results_dir, models_dir):
+    """``cli.train`` of config 1 and ``flags`` (1 epoch) on ``cohort``
+    (its directory and file), its checkpoints ``<name>-fold<k>`` under
+    ``models_dir``: the trainer."""
+    from deepards_tpu_torch.cli.train import main as train_main
+
+    return train_main(CONFIG1_FLAGS + flags + [
+        "--data-path", cohort[0], "--cohort-file", cohort[1],
+        "--epochs", "1", "--results-dir", results_dir, "--save-model",
+        name + ".pt", "--saved-models-dir", models_dir, "--device", device])
+
+
+def dtw_frames_vs_cpu(got, results, dataset, root, device):
+    """``got`` ({patient: DTWFrame}, the card's) against the same rows
+    through ``analyze_patient`` on the CPU (``dtw_reference``): index, hour
+    and dtw exactly equal.  Planted, each must fail: one patient's hours
+    shifted by one breath, and one prediction row given to another
+    patient (the hook run again on the device with that row moved)."""
+    from deepards_tpu_torch.eval import plots
+
+    want = plots.perform_dtw_preprocessing(
+        results, dataset, os.path.join(root, "cpu_cache"), device="cpu")
+
+    def misses(frames):
+        if list(frames) != list(want):
+            return ["patients {} against {}".format(list(frames),
+                                                    list(want))]
+        out = []
+        for pt, frame in want.items():
+            for field in ("index", "hour", "dtw"):
+                a, b = getattr(frames[pt], field), getattr(frame, field)
+                if a.shape != b.shape or not np.array_equal(
+                        a, b, equal_nan=field != "index"):
+                    out.append("{} {}".format(pt, field))
+        return out
+
+    failed = misses(got)
+    patients = list(want)
+    rows = [dict(r) for r in results.pred_to_hour_frame]
+    first = [i for i, r in enumerate(rows) if r["patient"] == patients[0]]
+    if len(patients) < 2 or len(first) < 2:
+        raise AssertionError(
+            "the hook saw {} test patients, the first with {} rows: moving "
+            "a row between two of them needs 2 and 2".format(
+                len(patients), len(first)))
+    shifted = dict(got)
+    shifted[patients[0]] = got[patients[0]]._replace(
+        hour=np.roll(got[patients[0]].hour, 1))
+    # the first patient's last row given to the second: both keep their
+    # place in the order, so only the frames' contents can catch it
+    rows[first[-1]]["patient"] = patients[1]
+    moved = plots.perform_dtw_preprocessing(
+        types.SimpleNamespace(pred_to_hour_frame=rows), dataset,
+        os.path.join(root, "moved_cache"), device=device)
+    planted = {"hours_shifted_a_breath": misses(shifted),
+               "row_given_to_another_patient": misses(moved)}
+    if list(moved) != patients:
+        raise AssertionError("the moved row changed the patients: {}".format(
+            list(moved)))
+    if not all(planted.values()):
+        raise AssertionError("the DTW frame check would pass {}".format(
+            [k for k, v in planted.items() if not v]))
+    return {"patients": len(want), "breaths": sum(len(f.index)
+                                                  for f in want.values()),
+            "misses": failed, "planted": planted}
+
+
+@contextlib.contextmanager
+def timing_dtw_chunks(timer):
+    """``timer`` records every chunk of ``dtw.lib.batched_dtw_pairs``
+    while the context lasts (its module-level ``TIMER``)."""
+    from deepards_tpu_torch.dtw import lib
+
+    lib.TIMER = timer
+    try:
+        yield timer
+    finally:
+        lib.TIMER = None
+
+
+def dtw_hook_kernel_ms(results, dataset, device, workdir, reps=10):
+    """The DTW kernel over ``reps`` more runs of the hook on the same
+    rows, each with a fresh cache: its launches a run, its device ms a
+    run by torch.profiler (None, with the profiler's error under
+    ``kernel_ms_not_measured``, where it recorded no DTW kernel), and its
+    ms a run between CUDA events around each call (host time
+    included)."""
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+    from deepards_tpu_torch.dtw.lib import SweepTimer
+    from deepards_tpu_torch.eval import plots
+    from deepards_tpu_torch.ops.dtw_timing import device_ms
+
+    calls, timers = [], []
+
+    def hook():
+        launched = dtw_ops.launches
+        with timing_dtw_chunks(SweepTimer()) as timer:
+            plots.perform_dtw_preprocessing(
+                results, dataset, tempfile.mkdtemp(dir=workdir),
+                device=device)
+        timers.append(timer)
+        calls.append(dtw_ops.launches - launched)
+
+    out = {}
+    try:
+        out["kernel_ms"] = device_ms(hook, reps=reps) * calls[-1]
+    except RuntimeError as e:
+        out.update(kernel_ms=None, kernel_ms_not_measured=str(e))
+    out.update(launches_a_run=calls[-1], kernel_call_ms=float(np.median(
+        [sum(t.kernel_ms) for t in timers[1:]])))
+    return out
+
+
+def real_size_patient(workdir, device, per_cell, n_windows, s=S):
+    """One seeded patient of ``n_windows`` windows of ``s`` breaths through
+    ``perform_dtw_preprocessing``: seconds split into the host's breath
+    lists and frames, ``_pad_pairs``, the copy and the kernel calls (CUDA
+    events around them, host time included), pairs/s, the kernel's own
+    time (torch.profiler) and its share of the bound, and DTW_KEEP of its
+    pairs held exactly to ``dtw_reference``."""
+    import torch
+
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+    from deepards_tpu_torch.dtw.lib import SweepTimer, _pad_pairs
+    from deepards_tpu_torch.eval import plots
+    from deepards_tpu_torch.ops.dtw import dtw_reference
+
+    root = os.path.join(workdir, "real_size")
+    os.makedirs(root)
+    data = make_windows(np.random.default_rng(SEED + 12), n_windows, s)
+    ds = cohort_dataset(root, data, [1], n_windows)
+    truth = ds.get_ground_truth()
+    rows = [{"index": int(i), "pred": 1, "hour": float(h),
+             "patient": str(p), "y": int(y)}
+            for i, h, p, y in zip(truth.index, truth.hour, truth.patient,
+                                  truth.y)]
+    launched = dtw_ops.launches
+    t0 = time.perf_counter()
+    with timing_dtw_chunks(SweepTimer(keep=DTW_KEEP)) as timer:
+        frames = plots.perform_dtw_preprocessing(
+            types.SimpleNamespace(pred_to_hour_frame=rows), ds,
+            os.path.join(root, "dtw_cache"), device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # the path's launches, read before the kernel is timed below
+    launches = dtw_ops.launches - launched
+    breaths = n_windows * s
+    pairs = 3 * (breaths - 3)
+    a, b, la, lb, d = timer.kept
+    want = dtw_reference(a, b, la, lb)
+    frame = frames[str(truth.patient[0])]
+    fields = {
+        "windows": n_windows, "breaths": breaths, "pairs": pairs,
+        "launches": launches,
+        "width": L, "chunks": len(timer.pad_s), "seconds": seconds,
+        "pairs_per_s": pairs / seconds, "pad_s": sum(timer.pad_s),
+        "copy_s": sum(timer.copy_s),
+        "kept_pairs_vs_reference_max_abs": float((d - want).abs().max()),
+        "frame_breaths": len(frame.index),
+        "finite_scores": int(np.isfinite(frame.dtw).sum())}
+    if fields["kept_pairs_vs_reference_max_abs"] != 0.0 or \
+            fields["frame_breaths"] != breaths or \
+            fields["finite_scores"] != breaths - 3:
+        raise AssertionError("the real-size patient: {}".format(fields))
+    if device != "cpu":
+        from deepards_tpu_torch.ops.dtw import dtw_cuda
+        from deepards_tpu_torch.ops.dtw_timing import device_ms
+
+        call_ms = sum(timer.kernel_ms)
+        lengths = torch.full((pairs,), L)
+        bound = dtw_bound(
+            lengths, lengths, per_cell["warp{}".format(-(-L // 32))],
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            sm_clock_hz())
+        # the kernel's own time (torch.profiler): a launch of the path's
+        # first chunk (8,192 pairs of 224 padded to width 256, as every
+        # chunk is but the last, also padded to 8,192) times the chunks
+        flat = data.reshape(-1, L)
+        first = [(i, i - k) for i in range(3, len(flat))
+                 for k in (1, 2, 3)][:8192]
+        chunk = [torch.from_numpy(x).to(device) for x in _pad_pairs(
+            [flat[i] for i, _ in first], [flat[j] for _, j in first])]
+        kernel_ms = device_ms(lambda: dtw_cuda(*chunk), reps=5) * len(
+            timer.pad_s)
+        fields.update(
+            kernel_call_ms=call_ms, kernel_ms=kernel_ms,
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+            kernel_share_of_bound=bound["bound_ms"] / kernel_ms,
+            breath_lists_s=seconds - fields["pad_s"] - fields["copy_s"]
+            - call_ms / 1e3)
+    return fields
+
+
+def evaluate_vs_predict(root, cohort, device, models_dir, name, kfolds, nb,
+                        results_dir):
+    """``cli.evaluate`` over each fold's checkpoint ``<name>-fold<k>``
+    twice (two pseudo-epochs, which must be equal), its patients'
+    pred_frac against ``cli.predict``'s votes of the same checkpoint
+    within PREDICT_ATOL."""
+    from deepards_tpu_torch.cli.evaluate import evaluate
+    from deepards_tpu_torch.cli.predict import predict
+    from deepards_tpu_torch.cli.train import build_parser
+    from deepards_tpu_torch.config.config import Configuration
+    from deepards_tpu_torch.data.dataset import ARDSRawDataset
+
+    flags = CONFIG1_FLAGS + ["--kfolds", str(kfolds), "--n-sub-batches",
+                             str(nb)]
+    conf = config_conf("config1", *flags[len(CONFIG1_FLAGS):])
+    data = ARDSRawDataset(
+        cohort[0], 1, cohort[1], nb, conf.dataset_type, kfold_num=0,
+        total_kfolds=kfolds).save(os.path.join(root, "evaluate.npz"))
+    models = {k: ["{}-fold{}".format(name, k)] * 2 for k in range(kfolds)}
+    t0 = time.perf_counter()
+    rows, aggregate, trainer = evaluate(Configuration(overrides=dict(
+        conf.conf, train_from_pickle=data, models=models,
+        results_dir=results_dir)), device, models_dir)
+    seconds = time.perf_counter() - t0
+    records = trainer.results.results
+    worst, unequal = 0.0, []
+    for k in range(kfolds):
+        epochs = [{r["patient"]: r["pred_frac"] for r in records
+                   if r["fold_num"] == k and r["epoch_num"] == e}
+                  for e in (0, 1)]
+        if epochs[0] != epochs[1] or not epochs[0]:
+            unequal.append(k)
+        _, votes = predict(Configuration(build_parser().parse_args(flags + [
+            "--train-from-pickle", data, "--only-fold", str(k),
+            "--device", device])), os.path.join(models_dir, models[k][0]))
+        if sorted(v["patient"] for v in votes) != sorted(epochs[0]):
+            unequal.append(k)
+            continue
+        worst = max(worst, max(abs(v["pred_frac"] - epochs[0][v["patient"]])
+                               for v in votes))
+    fields = {"folds": rows, "aggregate_rows": len(aggregate or ()),
+              "patient_rows": len(records), "seconds": seconds,
+              "max_abs_pred_frac_vs_predict": worst, "atol": PREDICT_ATOL}
+    if unequal or worst > PREDICT_ATOL or len(rows) != kfolds:
+        raise AssertionError("evaluate: pseudo-epochs or patients of folds "
+                             "{} unequal, {}".format(unequal, fields))
+    return fields
+
+
+def study_vs_cpu(got, want, two_d):
+    """A study's cams card vs CPU: picks and sample indexes equal, outputs
+    within STUDY_ATOL, cams within STUDY_ATOL of max(1, |x|) but for at
+    most 1% of them (a feature within rounding of 0 passes the head's
+    ReLU on one side only, and the cam of that window jumps).  Returns
+    (fields, failures)."""
+    failed = []
+    fields = {"cams": 0, "cams_apart": 0, "max_abs_cam": 0.0,
+              "max_abs_output": 0.0}
+    for patho in (0, 1):
+        if got.seq_idxs[patho] != want.seq_idxs[patho] or [
+                tuple(k) for k in got.kfold_idxs[patho]] != [
+                tuple(k) for k in want.kfold_idxs[patho]]:
+            failed.append("picks of class {}".format(patho))
+            continue
+        for g, w, go, wo in zip(got.cams[patho], want.cams[patho],
+                                got.model_outs[patho], want.model_outs[patho]):
+            miss = np.abs(g - w) / np.maximum(1.0, np.abs(w))
+            fields["cams"] += 1
+            fields["cams_apart"] += int(miss.max() > STUDY_ATOL)
+            fields["max_abs_cam"] = max(fields["max_abs_cam"],
+                                        float(np.abs(g - w).max()))
+            fields["max_abs_output"] = max(fields["max_abs_output"],
+                                           float(np.abs(go - wo).max()))
+    fields["unnormalized"] = two_d
+    if fields["cams_apart"] > 0.01 * fields["cams"]:
+        failed.append("{} of {} cams apart".format(fields["cams_apart"],
+                                                   fields["cams"]))
+    if fields["max_abs_output"] > STUDY_ATOL:
+        failed.append("outputs {}".format(fields["max_abs_output"]))
+    return fields, failed
+
+
+def cam_studies(workdir, cohort, device, kfolds, nb, samps, results_dir,
+                trainers):
+    """``cli.cam_analytics one-d`` over the checkpoints of a 2-fold
+    ``--only-fft`` run, ``two-d`` over the same, ``butter`` over those of
+    a run through a 0-5 Hz Butterworth filter, each on the card and on the
+    CPU (``study_vs_cpu``; the splices' indexes equal and logits within
+    STUDY_ATOL; the prototypes within STUDY_ATOL of their scale); cams/s
+    of a batch of CAM_BATCH sequences on the card.  The runs' trainers go
+    to ``trainers``.  Returns (fields, failures)."""
+    from deepards_tpu_torch.cli import cam_analytics
+    from deepards_tpu_torch.data.dataset import ARDSRawDataset
+    from deepards_tpu_torch.explain import frequency_analytics as fa
+    from deepards_tpu_torch.explain.gradcam import UnNormalizedCam
+
+    models_dir = os.path.join(workdir, "cam_models")
+    fields, failed = {}, []
+    data = {}
+    base = ["--kfolds", str(kfolds), "--n-sub-batches", str(nb)]
+    for kind, extra in (("fft", ["--only-fft"]),
+                        ("butter", ["--butter-low", "0", "--butter-high",
+                                    "5"])):
+        t0 = time.perf_counter()
+        trainers.append(analytics_run(cohort, device, base + extra, kind,
+                                      results_dir, models_dir))
+        conf = config_conf("config1", *base)
+        data[kind] = ARDSRawDataset(
+            cohort[0], 1, cohort[1], nb, conf.dataset_type, kfold_num=0,
+            total_kfolds=kfolds, only_fft=kind == "fft").save(
+                os.path.join(workdir, "cam_{}.npz".format(kind)))
+        fields["{}_run_seconds".format(kind)] = time.perf_counter() - t0
+    for cmd, kind in (("one-d", "fft"), ("two-d", "fft"),
+                      ("butter", "butter")):
+        argv = [cmd, "-p", data[kind], "--model-pattern",
+                os.path.join(models_dir, kind + "-fold{fold}"), "--folds",
+                str(kfolds), "-n", str(samps)]
+        if cmd == "butter":
+            argv += ["--no-filter-pickle", data[kind], "-lf", "0", "-hf", "5"]
+        res, seconds = {}, {}
+        for dev in dict.fromkeys((device, "cpu")):
+            t0 = time.perf_counter()
+            res[dev] = cam_analytics.main(argv + [
+                "-o", os.path.join(workdir, "cams", cmd, dev),
+                "--device", dev])
+            seconds[dev] = time.perf_counter() - t0
+        got, want = res[device], res["cpu"]
+        study, missed = study_vs_cpu(got["study"], want["study"],
+                                     cmd == "two-d")
+        study["seconds"] = seconds
+        failed += ["{}: {}".format(cmd, m) for m in missed]
+        if cmd == "one-d":
+            a, b = got["splices"], want["splices"]
+            apart = sorted(a) != sorted(b) or any(
+                not np.array_equal(a[k], b[k]) for k in
+                ("ards_idx", "other_idx", "flipped") if k in b) or any(
+                np.abs(a[k] - b[k]).max() > STUDY_ATOL for k in
+                ("before_ards_logit", "after_ards_logit") if k in b)
+            study["splices"] = len(b.get("ards_idx", ()))
+            if apart:
+                failed.append("one-d: splices {} against {}".format(a, b))
+        if cmd == "butter":
+            worst = 0.0
+            for key, value in want["prototypes"].items():
+                scale = max(1.0, float(np.abs(value).max()))
+                worst = max(worst, float(np.abs(
+                    got["prototypes"][key] - value).max()) / scale)
+            study["prototypes_max_rel"] = worst
+            if sorted(got["prototypes"]) != sorted(want["prototypes"]) or \
+                    worst > STUDY_ATOL:
+                failed.append("butter: prototypes {}".format(worst))
+        fields[cmd] = study
+    if device != "cpu":
+        ds = ARDSRawDataset.from_pickle(data["fft"])
+        ds.set_kfold_indexes_for_fold(0)
+        model = cam_analytics.models_by_fold(
+            "cnn_linear", "densenet18", ds, os.path.join(
+                models_dir, "fft-fold{fold}"), 1, device)[0]
+        idx = np.resize(ds.current_indices(), fa.CAM_BATCH)
+        xs = fa.gather_pipeline(ds)(ds.cache.data[idx])
+        gen = UnNormalizedCam(model)
+        ms = cuda_ms(lambda: gen.generate_cams_batch(
+            xs, np.zeros(len(xs), np.int64)), warmup=1, reps=5)
+        fields["cams_per_s"] = {"batch": fa.CAM_BATCH, "ms": ms,
+                                "cams_per_s": fa.CAM_BATCH / ms * 1e3}
+    return fields, failed
+
+
+def results_tools(results_dir, trainers):
+    """``cli.mean_metrics``, ``cli.visualize_results`` (its meters, no
+    figure) and ``cli.find_all_experiments`` over the phase's results:
+    each run's AUC by fold and epoch equal to ``eval.metrics.roc_auc`` of
+    the same rows, a meters file and a record a run."""
+    from deepards_tpu_torch.cli import find_all_experiments as find
+    from deepards_tpu_torch.cli import mean_metrics
+    from deepards_tpu_torch.cli import visualize_results
+    from deepards_tpu_torch.eval.metrics import roc_auc
+
+    files = sorted(glob.glob(os.path.join(results_dir, "*_results_*.json")))
+    unequal = []
+    for path in files:
+        rows = mean_metrics.load_results(path)
+        stats = mean_metrics.compute_metrics_from_patient_results(rows)
+        for f, e, auc in zip(stats["fold"], stats["epoch"], stats["AUC"]):
+            mine = [r for r in rows if r["fold_num"] == f
+                    and r["epoch_num"] == e]
+            want = roc_auc([r["patho"] for r in mine],
+                           [r["pred_frac"] for r in mine])
+            if not (auc == want or (np.isnan(auc) and np.isnan(want))):
+                unequal.append((os.path.basename(path), f, e))
+    best = mean_metrics.main(["--results-dir", results_dir])
+    meters = visualize_results.load_meters(results_dir)
+    found = find.find_experiments(results_dir)
+    starts = sorted(str(t.start_time) for t in trainers)
+    fields = {"results_files": len(files), "folds": len(best["fold"]),
+              "meters_files": len(meters), "experiments": len(found),
+              "auc_rows_unequal": unequal}
+    if unequal or len(files) != len(trainers) or sorted(
+            r["start_time"] for r in found) != starts or len(meters) != len(
+                set(starts)):
+        raise AssertionError("results tools: {}".format(fields))
+    return fields
+
+
+def dtw_cohort(workdir):
+    """The DTW run's seeded cohort, 10 patients x DTW_COHORT_BREATHS
+    breaths: (data path, cohort file)."""
+    from deepards_tpu_torch.data.synthetic import generate_cohort
+
+    cohort_dir = os.path.join(workdir, "dtw_cohort")
+    return cohort_dir, generate_cohort(
+        cohort_dir, n_patients=10, n_breaths_per_patient=DTW_COHORT_BREATHS,
+        seed=SEED, subdirs=("all_data",))
+
+
+def phase_analytics(workdir, device="cuda", per_cell=None,
+                    eval_models=None, nb=S, kfolds=ANALYTICS_KFOLDS,
+                    cam_kfolds=CAM_KFOLDS, cam_samps=CAM_SAMPS,
+                    real_windows=REAL_PATIENT_WINDOWS, cohort=None,
+                    dtw_data=None):
+    """Training's DTW preprocessing, the frequency cam studies and the
+    results tools, at config 1's width:
+    ``cli.train --perform-dtw-preprocessing`` (``kfolds`` folds x 1 epoch)
+    on ``dtw_data``, its frames held exactly to the CPU's
+    (``dtw_frames_vs_cpu``) and its kernel timed; one real-size patient
+    (``real_size_patient``); ``cli.evaluate`` over ``eval_models`` (the
+    train phase's fold checkpoints, else the DTW run's) against
+    ``cli.predict`` (``evaluate_vs_predict``); the cam CLIs card vs CPU
+    (``cam_studies``); the results tools over the phase's results
+    (``results_tools``).  ``cohort``, ``dtw_data``: (directory, file), by
+    default config 1's and ``dtw_cohort``'s.  One JSON line, a stage's
+    DTW launches counted from 0 just before it (``run_stages``).  Returns
+    the DTW launches by path."""
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+    from deepards_tpu_torch.eval import plots
+
+    root = os.path.join(workdir, "analytics")
+    os.makedirs(root)
+    cohort = cohort or config_cohort(workdir, config_conf("config1"))
+    dtw_data = dtw_data or dtw_cohort(root)
+    results_dir = os.path.join(root, "results")
+    models_dir = os.path.join(root, "models")
+    launches, trainers = {}, []
+
+    # the hook's arguments, as the trainer passes them
+    hook = {}
+    traced = plots.perform_dtw_preprocessing
+
+    def recording(results, test_dataset, *args, **kwargs):
+        hook.update(results=results, dataset=test_dataset)
+        return traced(results, test_dataset, *args, **kwargs)
+
+    def dtw_training(fields):
+        plots.perform_dtw_preprocessing = recording
+        try:
+            with contextlib.chdir(root):
+                trainer = analytics_run(
+                    dtw_data, device, ["--kfolds", str(kfolds),
+                                       "--n-sub-batches", str(nb),
+                                       "--perform-dtw-preprocessing"],
+                    "dtw", results_dir, models_dir)
+        finally:
+            plots.perform_dtw_preprocessing = traced
+        trainers.append(trainer)
+        # the path's launches: the checks' and the profile's below are not
+        out = fields["dtw_preprocessing"] = {
+            "frames": len(trainer.dtw_frames), "launches": dtw_ops.launches,
+            "cut": {"folds": kfolds, "epochs": "10 -> 1"}}
+        out["vs_cpu"] = dtw_frames_vs_cpu(
+            trainer.dtw_frames, hook["results"], hook["dataset"], root,
+            device)
+        if device != "cpu":
+            out["kernel"] = dtw_hook_kernel_ms(hook["results"],
+                                               hook["dataset"], device, root)
+        if out["vs_cpu"]["misses"]:
+            return ["dtw frames vs the CPU: {}".format(
+                out["vs_cpu"]["misses"])]
+        return ()
+
+    def real_size(fields):
+        fields["real_size_patient"] = real_size_patient(
+            root, device, per_cell, real_windows, nb)
+
+    def evaluate(fields):
+        fields["evaluate"] = evaluate_vs_predict(
+            root, cohort, device, eval_models or models_dir,
+            "config1" if eval_models else "dtw", kfolds, nb,
+            os.path.join(root, "evaluate_results"))
+
+    def cams(fields):
+        fields["cam_analytics"], missed = cam_studies(
+            root, cohort, device, cam_kfolds, nb, cam_samps, results_dir,
+            trainers)
+        return missed
+
+    def tools(fields):
+        fields["results_tools"] = results_tools(results_dir, trainers)
+
+    fields, failed = run_stages(
+        "analytics", [("dtw_preprocessing", dtw_training),
+                      ("real_size_patient", real_size),
+                      ("evaluate", evaluate), ("cam_analytics", cams),
+                      ("results_tools", tools)], device,
+        flags=CONFIG1_FLAGS, launches=launches)
+    fields["launches_by_path"] = launches
+    emit("analytics", **fields)
+    if device != "cpu" and not (launches["dtw_preprocessing"]
+                                and launches["real_size_patient"]):
+        failed.append("a DTW path launched no kernel: {}".format(launches))
+    if any(launches[k] for k in ("evaluate", "cam_analytics",
+                                 "results_tools")):
+        failed.append("an analytics CLI launched the dtw kernel: {}".format(
+            launches))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"analytics_dtw_preprocessing": launches["dtw_preprocessing"],
+            "analytics_real_size_patient": launches["real_size_patient"],
+            "evaluate": launches["evaluate"],
+            "cam_analytics": launches["cam_analytics"],
+            "results_tools": launches["results_tools"]}
 
 
 # the phases in the order of a whole run (``serve`` is the main path:
@@ -4760,8 +5726,28 @@ def backbone_path(workdir, name, device="cuda"):
 PHASES = ("serve", "train", "graph_vs_eager", "config1_surface", "config2",
           "config3", "config4", "config4_unshuffled", "config7", "config5",
           "explain", "sequence", "two_d", "siamese", "backbones",
-          "dtw_similarity", "hetero")
-PHASE_NEEDS = {"config1_surface": ("train",), "explain": ("train", "config5")}
+          "analytics", "dtw_similarity", "hetero")
+PHASE_NEEDS = {"config1_surface": ("train",), "explain": ("train", "config5"),
+               "analytics": ("train",)}
+
+
+def cpu_jobs(phases):
+    """The worker's jobs for ``phases``, in the order the card needs them:
+    the card-vs-CPU CPU sides of configs 1-4 (``train``,
+    ``config2``-``4``) and of the ``sequence``, ``siamese`` and
+    ``backbones`` networks, each network's float64 pass and then its
+    float32 pass, and last ``dtw_similarity``'s sub-cohort."""
+    names = {"train": ["config1"], "config2": ["config2"],
+             "config3": ["config3"], "config4": ["config4"],
+             "sequence": list(SEQUENCE_FLAGS),
+             "siamese": list(SIAMESE_FLAGS),
+             "backbones": [n for n in BACKBONE_BY_BLOCK
+                           if n != "protopnet_vgg11_bn"]}
+    jobs = [(kind, n) for phase in PHASES if phase in phases
+            for n in names.get(phase, ()) for kind in ("float64", "float32")]
+    if "dtw_similarity" in phases:
+        jobs.append(("similarity", None))
+    return jobs
 
 
 def parse_phases(argv=None):
@@ -4791,6 +5777,7 @@ def parse_phases(argv=None):
 
 
 def main(argv=None):
+    global CPU_SIDES
     phases = parse_phases(argv)
     import torch
 
@@ -4798,18 +5785,59 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    from deepards_tpu_torch.ops.build import BUILD_DIR
+
+    BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as sides_dir:
+        # the CPU sides of card vs CPU start now, in a worker process of
+        # half the cores, while the card runs the phases before them
+        jobs = cpu_jobs(phases)
+        threads = torch.get_num_threads()
+        if jobs:
+            # the cores split between the worker and this process, so
+            # neither's threads wait on the other's
+            cores = os.cpu_count() or 2
+            CPU_SIDES = CpuSides(jobs, sides_dir, max(1, cores // 2))
+            torch.set_num_threads(max(1, cores - cores // 2))
+        try:
+            return run_phases(phases)
+        finally:
+            if CPU_SIDES is not None:
+                CPU_SIDES.close()
+                CPU_SIDES = None
+            torch.set_num_threads(threads)
+
+
+def run_phases(phases):
+    """Every phase of ``phases`` after env, build and the kernel check;
+    the JSON lines, the card's line and the ok line."""
+    import torch
+
     import deepards_tpu_torch.ops.dtw as dtw_ops
     from deepards_tpu_torch.ops.build import BUILD_DIR
 
     # each phase's seconds on the host's clock, printed before the kernels
     seconds = {}
     began = time.perf_counter()
+    # a phase that fails is recorded and the next phases run; the script
+    # then fails before its result lines
+    failures = {}
 
     def timed(phase, fn, *args, **kwargs):
         t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        seconds[phase] = seconds.get(phase, 0.0) + time.perf_counter() - t0
-        return out
+        try:
+            return fn(*args, **kwargs)
+        except Exception as e:  # noqa: BLE001 - recorded, raised at the end
+            if phase in ("env", "build", "kernel"):
+                raise
+            import traceback
+
+            traceback.print_exc()
+            failures[phase] = "{}: {}".format(type(e).__name__, e)[:2000]
+            return None
+        finally:
+            seconds[phase] = (seconds.get(phase, 0.0)
+                              + time.perf_counter() - t0)
 
     def counted(phase, fn, *args, **kwargs):
         """A path's DTW launches: the count from 0 just before it, read
@@ -4821,7 +5849,6 @@ def main(argv=None):
     smi = timed("env", phase_env)
     timed("build", phase_build)
     dtw_stats = timed("kernel", phase_kernel)
-    BUILD_DIR.mkdir(exist_ok=True)
 
     # the main path
     by_path = {}
@@ -4832,8 +5859,8 @@ def main(argv=None):
         timed("dtw_served", phase_dtw_served, windows)
         by_path["serve"] = dtw_ops.launches
         if by_path["serve"] == 0:
-            raise AssertionError("the main path never launched the dtw "
-                                 "kernel")
+            failures.setdefault("serve", "the main path never launched the "
+                                "dtw kernel")
 
     # the training paths run no hand-written kernel: each one's count
     # required to stay 0
@@ -4862,10 +5889,10 @@ def main(argv=None):
                                             "config1-fold0"),
                 ppnet_checkpoint=os.path.join(work, "config5_models",
                                               "config5-fold0"),
-                per_cell=dtw_stats["fp32_per_cell"])
+                per_cell=dtw_stats["fp32_per_cell"]) or 0
             if not by_path["explain"]:
-                raise AssertionError("the explain path never launched the "
-                                     "dtw kernel")
+                failures.setdefault("explain", "the explain path never "
+                                    "launched the dtw kernel")
         # a line a network: each one's count from 0 just before it
         # (inside the phase), read just after
         for phase, fn in (("sequence", phase_sequence),
@@ -4873,13 +5900,20 @@ def main(argv=None):
                           ("siamese", phase_siamese),
                           ("backbones", phase_backbones)):
             if phase in phases:
-                by_path.update(timed(phase, fn, work))
+                by_path.update(timed(phase, fn, work) or {})
+        if "analytics" in phases:
+            # the DTW paths' counts from 0 just before each (inside the
+            # phase), read just after
+            by_path.update(timed(
+                "analytics", phase_analytics, work,
+                per_cell=dtw_stats["fp32_per_cell"],
+                eval_models=os.path.join(work, "config1_models")) or {})
     training = {name: n for name, n in by_path.items()
                 if name in CONFIG_FLAGS}
     emit("train_path_kernel_launches", dtw=training)
     if any(training.values()):
-        raise AssertionError("a training path launched the dtw kernel: {}"
-                             .format(training))
+        failures["training_paths"] = "a training path launched the dtw " \
+            "kernel: {}".format(training)
 
     # the DTW heterogeneity paths: the sweep's counts from 0 just before
     # it (inside the phase, whose checks launch the kernel too), the CLI
@@ -4888,16 +5922,22 @@ def main(argv=None):
         if "dtw_similarity" in phases:
             by_path["dtw_similarity"] = timed(
                 "dtw_similarity", phase_dtw_similarity, work,
-                per_cell=dtw_stats["fp32_per_cell"]["strip"])
+                per_cell=dtw_stats["fp32_per_cell"]["strip"]) or 0
         if "hetero" in phases:
             dtw_ops.launches = 0
-            by_path["hetero"] = timed("hetero", phase_hetero, work)
+            by_path["hetero"] = timed("hetero", phase_hetero, work) or 0
             if dtw_ops.launches != by_path["hetero"]:
-                raise AssertionError(
-                    "hetero launches: {} counted, {} by step".format(
-                        dtw_ops.launches, by_path["hetero"]))
+                failures.setdefault("hetero", "hetero launches: {} counted, "
+                                    "{} by step".format(dtw_ops.launches,
+                                                        by_path["hetero"]))
+    if CPU_SIDES is not None:
+        emit("cpu_worker", **CPU_SIDES.report())
     emit("phase_seconds", total=time.perf_counter() - began,
          phases=list(phases), **seconds)
+    if failures:
+        emit("failed_phases", **failures)
+        raise AssertionError("phases failed: {}".format(
+            ", ".join(failures)))
 
     print(json.dumps({"kernels": [{
         "name": "dtw",

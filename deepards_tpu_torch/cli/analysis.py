@@ -24,7 +24,7 @@ import torch
 
 from deepards_tpu_torch.data.pipeline import design_butter_sos, sosfilt
 from deepards_tpu_torch.device import resolve_device
-from deepards_tpu_torch.dtw.lib import analyze_patient
+from deepards_tpu_torch.dtw.lib import analyze_patient, as_columns
 
 
 def _nanmean(values):
@@ -61,9 +61,9 @@ def regression_dtw_features(dataset, preds_by_hour, cache_dir="dtw_cache",
     ``preds_by_hour``: prediction rows with ``index``, ``pred``, ``hour``
     and ``patient`` (``DeepARDSResults.pred_to_hour_frame``).  Returns
     (feature rows, fit or None under 3 rows)."""
-    rows = []
+    rows, columns = [], as_columns(preds_by_hour)
     for pt in dict.fromkeys(r["patient"] for r in preds_by_hour):
-        frame = analyze_patient(pt, dataset, cache_dir, preds_by_hour,
+        frame = analyze_patient(pt, dataset, cache_dir, columns,
                                 device=device)
         keep = ~(np.isnan(frame.dtw) | np.isnan(frame.hour))
         dtw, hour = frame.dtw[keep], frame.hour[keep]

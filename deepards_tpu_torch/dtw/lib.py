@@ -129,6 +129,12 @@ def _pad_pairs(seqs_a, seqs_b, width_bucket=64, batch_bucket=True):
     return a, b, la, lb
 
 
+# a ``SweepTimer`` that records the chunks of every ``batched_dtw_pairs``
+# call given none, for a caller that times a path whose functions take no
+# timer (``chip_smoke.py`` times training's DTW preprocessing so)
+TIMER = None
+
+
 def batched_dtw_pairs(seqs_a, seqs_b, chunk=8192, device=None, timer=None):
     """DTW distance for each (seqs_a[i], seqs_b[i]) pair; ragged input.
 
@@ -136,9 +142,12 @@ def batched_dtw_pairs(seqs_a, seqs_b, chunk=8192, device=None, timer=None):
     chunk rather than every chunk, in chunks of up to ``chunk`` pairs
     padded by ``_pad_pairs``.  Results are scattered back to input order;
     each pair's DP is independent, so values do not depend on chunking or
-    sorting.  ``timer``: a ``SweepTimer`` that records each chunk.
+    sorting.  ``timer``: a ``SweepTimer`` that records each chunk
+    (``TIMER`` where none is given).
     """
     device = resolve_device(device)
+    if timer is None:
+        timer = TIMER
     m = len(seqs_a)
     out = np.zeros(m, np.float64)
     if m == 0:
@@ -215,13 +224,21 @@ def dtw_analyze(pt_data, n_breaths, rolling_av_len, obs_index, hours,
     return DTWFrame(np.asarray(idx, np.int64), scores, hrs)
 
 
+def as_columns(rows):
+    """Prediction rows (a list of dicts with the same keys) as columns:
+    {key: numpy array}."""
+    keys = list(rows[0]) if rows else ["index", "hour", "patient"]
+    return {k: np.asarray([r[k] for r in rows]) for k in keys}
+
+
 def analyze_patient(patient_id, dataset, cache_dir, preds_by_hour,
                     n_breaths=3, rolling_len=1, device=None):
     """A patient's ``DTWFrame`` with an on-disk cache
     (reference: dtw_lib.py:375-409).
 
-    ``preds_by_hour``: prediction rows with ``index``, ``hour`` and
-    ``patient`` (``DeepARDSResults.pred_to_hour_frame``), or None for the
+    ``preds_by_hour``: prediction columns ``index``, ``hour`` and
+    ``patient`` (``as_columns`` of ``DeepARDSResults.pred_to_hour_frame``,
+    or ``eval.plots.process_pred_to_hour_for_dtw``), or None for the
     windows' own hours.  The cache file's name carries every input that
     changes the scores, as the JAX package's does: patient, n_breaths,
     rolling_len, dataset_type, n_sub_batches and the split mode (filters
@@ -243,9 +260,9 @@ def analyze_patient(patient_id, dataset, cache_dir, preds_by_hour,
     if preds_by_hour is None:
         obs, hours = pt_obs_idx, dataset.cache.hours[pt_obs_idx, 0]
     else:
-        rows = [r for r in preds_by_hour if r["patient"] == patient_id]
-        obs = [r["index"] for r in rows]
-        hours = [r["hour"] for r in rows]
+        mine = np.asarray(preds_by_hour["patient"]) == patient_id
+        obs = np.asarray(preds_by_hour["index"])[mine]
+        hours = np.asarray(preds_by_hour["hour"])[mine]
     frame = dtw_analyze(pt_data, n_breaths, rolling_len, obs, hours,
                         device=device)
     np.savez(path, **frame._asdict())

@@ -83,6 +83,17 @@ class GradCam:
         fmaps, grads, out = self._fmaps_and_grads(xs, targets)
         return self._cams(fmaps, grads).cpu().numpy(), out.cpu().numpy()
 
+    def cams_batch(self, xs, targets):
+        """Raw whole-sequence cams of a batch, as ``generate_cam`` gives
+        them a sequence at a time: each sequence's gradient averaged over
+        its S windows and positions as channel weights, over its feature
+        map averaged over its windows.  (B, L') float32 and (B, 2) outputs,
+        as numpy."""
+        fmaps, grads, out = self._fmaps_and_grads(xs, targets)
+        weights = grads.mean(dim=(1, 3))  # (B, C')
+        cams = (weights[:, :, None] * fmaps.mean(dim=1)).sum(dim=1)
+        return cams.cpu().numpy(), out.cpu().numpy()
+
     def _grad_and_output(self, x, target):
         """x: one (S, C, L) sequence -> (conv (S, C', L'), grad, (1, 2)
         output) as numpy; ``target`` None takes the predicted class."""
@@ -118,6 +129,12 @@ class MaxMinNormCam(GradCam):
         weights = grad.mean(axis=(0, 2))  # (C',)
         cam = (weights[:, None] * conv.mean(axis=0)).sum(axis=0)
         return self.normalize(cam), out
+
+    def generate_cams_batch(self, xs, targets):
+        """(B, L') uint8 whole-sequence cams and (B, 2) outputs of a batch
+        (``generate_cam`` of each sequence)."""
+        cams, outs = self.cams_batch(xs, targets)
+        return np.stack([self.normalize(c) for c in cams]), outs
 
     @staticmethod
     def normalize(cam):
@@ -160,6 +177,11 @@ class UnNormalizedCam(GradCam):
         conv, grad, out = self._grad_and_output(x, target)
         cam = (grad.mean(axis=2)[:, :, None] * conv).sum(axis=1)
         return np.maximum(0, cam), out
+
+    def generate_cams_batch(self, xs, targets):
+        """(B, L') unnormalized whole-sequence cams and (B, 2) outputs."""
+        cams, outs = self.cams_batch(xs, targets)
+        return np.maximum(0, cams), outs
 
     def generate_read_cams_batch(self, xs, targets):
         """(B, S, L') unnormalized cams and (B, 2) outputs."""

@@ -66,11 +66,38 @@ from deepards_tpu_torch.train.steps import (
 # options of the JAX trainer not ported yet: setting one raises
 _UNPORTED_OPTIONS = (
     "plot_untiled_disease_evol", "plot_tiled_disease_evol",
-    "plot_dtw_with_disease", "perform_dtw_preprocessing",
-    "plot_pt_dtw_by_minute", "distributed_coordinator",
+    "plot_dtw_with_disease", "plot_pt_dtw_by_minute",
+    "distributed_coordinator",
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": None, None: None}
+
+
+def _check_dtw_preprocessing(spec):
+    """Refuse ``perform_dtw_preprocessing`` where the JAX package's run
+    fails: the autoencoder, the regressor, the siamese and detector
+    trainers save no predictions by hour (``pred_to_hour_frame`` is never
+    set); a 2D network's test split, ``ImgARDSDataset``, has no window
+    cache; and a per-breath head of the standard trainer repeats each
+    window's index S times, which ``process_pred_to_hour_for_dtw``
+    cannot expand (``deepards_tpu/eval/plots.py:24-37``)."""
+    if spec.kind == "autoencoder":
+        raise NotImplementedError(
+            "perform_dtw_preprocessing: the autoencoder has no predictions "
+            "by hour")
+    if spec.kind != "classifier":
+        reason = "the {} trainer saves no predictions by hour".format(
+            spec.kind)
+    elif spec.two_dim:
+        reason = "a 2D network's test split has no window cache"
+    elif spec.expand_obs_idx and not spec.super_batch:
+        reason = ("a per-breath head repeats each window's prediction S "
+                  "times")
+    else:
+        return
+    raise NotImplementedError(
+        "perform_dtw_preprocessing with {}: {}, and the JAX package's run "
+        "fails there".format(spec.name, reason))
 
 
 def make_trainer(conf, **kwargs):
@@ -271,6 +298,8 @@ class Trainer:
                 "dp_devices={}: the port trains on one device".format(
                     conf.get("dp_devices")))
         self.spec = get_network_spec(conf.network)
+        if conf.get("perform_dtw_preprocessing"):
+            _check_dtw_preprocessing(self.spec)
         self.device = resolve_device(
             device if device is not None else conf.get("device"))
         self.n_kfolds = (
@@ -536,7 +565,21 @@ class Trainer:
             self._current_scaling = train_dataset.scaling_for_current_fold()
             self.run_fold(fold_num, train_dataset, test_dataset)
         self.perform_post_modeling_actions()
+        self.perform_plotting(test_dataset)
         return self.results
+
+    def perform_plotting(self, test_dataset):
+        """``perform_dtw_preprocessing``: once the folds are done, each
+        patient's rolling DTW frame of the last predictions by hour on the
+        last fold's test split, cached under ``dtw_cache`` (reference:
+        train_ards_detector.py:496-511), kept as ``dtw_frames``
+        ({patient: ``DTWFrame``}).  The plot flags are refused."""
+        if not self.conf.get("perform_dtw_preprocessing"):
+            return
+        from deepards_tpu_torch.eval import plots
+
+        self.dtw_frames = plots.perform_dtw_preprocessing(
+            self.results, test_dataset, "dtw_cache", device=self.device)
 
     def make_runner(self, state, dataset, train_step, eval_step,
                     graphed=None):

@@ -174,6 +174,7 @@ class ParallelFoldTrainer(Trainer):
         self.resume_meta = None
         self.final_state = state
         self.perform_post_modeling_actions()
+        self.perform_plotting(test_dataset)
         return self.results
 
     # -- state ----------------------------------------------------------------

@@ -2,7 +2,7 @@
 """Where a network's float32 parts from float64 on the card.
 
     python3 float32_gap.py [--device cuda|cpu] [--network NAME]
-                           [--full-depth]
+                           [--full-depth] [--control THREADS]
 
 ``chip_smoke.py`` holds cnn_to_nested_transformer's float32 params, card
 against CPU, after the first of its 3 full-width train steps only
@@ -23,6 +23,12 @@ the smoke holds it, or with ``--full-depth`` at its own) prints one
 the smoke's 3 card-vs-CPU steps with its float32 params held after all 3,
 and for each step each side's float32 gradients after the clamp
 (``--clip-val``) against float64's on the CPU.
+
+With ``--control THREADS`` (a comma-separated list) it prints one
+``cpu_control`` line a thread count instead: the smoke's CPU float32
+control of ``--network`` (its batch's rows permuted against the run in
+order, 3 steps) with float64's clamp decisions replayed and with each
+run's own (``cpu_control``), on the CPU alone.
 
 It runs on the card (TF32 off, as the smoke sets it) unless ``--device
 cpu``, where both sides are the CPU; it gates nothing and exits non-zero
@@ -197,8 +203,10 @@ def clamp_swings(device, name, top=3):
     names = [n for n, _ in trainer.build_model().named_parameters()]
     clip = conf.clip_val if conf.get("clip_grad") else float("inf")
     # every optimizer step's gradients before the clamp, in the order the
-    # check runs them: float64 on the CPU and on the card, float32 on the
-    # CPU and on the card, 3 steps each, then its own controls
+    # check runs them, 3 steps each: float64 on the CPU, float64 and
+    # float32 on the card, the card's planted clamp flip (a clipped
+    # optimizer's, but of OWN_CLAMPS), float32 on the CPU, then its own
+    # controls
     grads = []
     step = steps.ClippedOptimizer.step
 
@@ -217,10 +225,14 @@ def clamp_swings(device, name, top=3):
     finally:
         steps.ClippedOptimizer.step = step
     exact = grads[0:3]
+    # the planted flip's run: a clipped network that replays its clamps
+    cpu = 12 if conf.get("clip_grad") and name not in smoke.OWN_CLAMPS \
+        else 9
     swings = []
     for k in range(3):
         row = {}
-        for side, run in (("cpu", grads[6:9]), ("device", grads[9:12])):
+        for side, run in (("cpu", grads[cpu:cpu + 3]),
+                          ("device", grads[6:9])):
             diffs = [((got - want).abs(), n, got, want)
                      for n, got, want in zip(names, run[k], exact[k])]
             largest = sorted(((float(d.max()), n, int(d.argmax()), g, w)
@@ -243,6 +255,40 @@ def clamp_swings(device, name, top=3):
             "clamp_swings": swings}
 
 
+def cpu_control(name, threads):
+    """The CPU float32 control of the smoke's card-vs-CPU check of
+    network ``name`` on ``threads`` torch threads: the run over the
+    batch's rows permuted against the run in order, with the float64
+    run's clamp decisions replayed (``replayed``, as the smoke runs every
+    network but those of ``OWN_CLAMPS``) and with each run's own
+    (``own``), each step's largest distance and held elements over the
+    limit; and by clamp call, the elements where float32's own decision
+    differs from float64's, and float64's clamped elements."""
+    torch.set_num_threads(threads)
+    c = smoke.CardVsCpu(name)
+    # recorded and replayed here whether or not the smoke replays them
+    c.replays_clamps = c.clip
+    f64 = []
+    _, _, sorts = c.run("cpu", torch.float64, clamps=f64)
+    own = []
+    remap = smoke.remapped(c.permuted, c.nested)
+    out = {"threads": threads}
+    for variant, kwargs, records in (
+            ("own", {}, own), ("replayed", {"clamp_replay": f64}, None)):
+        steps = c.run("cpu", torch.float32, replay=sorts, clamps=records,
+                      **kwargs)[1]
+        permuted = c.run("cpu", torch.float32, rows=c.permuted,
+                         replay=sorts, remap=remap, **kwargs)[1]
+        out[variant] = [{"max_abs": r["max_abs"],
+                         "over_atol_held": r["over_atol_held"]}
+                        for r in c.compare(permuted, steps, c.held(True))]
+    out["float32_decisions_apart_by_call"] = [
+        sum(int((a[n] != b[n]).sum()) for n in a) for a, b in zip(own, f64)]
+    out["float64_clamped_by_call"] = [
+        sum(int(m.sum()) for m in r.values()) for r in f64]
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -250,6 +296,9 @@ def main(argv=None):
                         help="a network of chip_smoke.CONFIG_FLAGS")
     parser.add_argument("--full-depth", action="store_true",
                         help="a senet at its own depth")
+    parser.add_argument("--control", help="thread counts, comma-separated:"
+                        " the CPU's float32 control with and without the "
+                        "clamp replay")
     args = parser.parse_args(argv)
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -265,6 +314,12 @@ def main(argv=None):
     if args.full_depth:
         smoke.NEW_DEPTH["one_block_a_stage"]["card_vs_cpu"] = ()
     with smoke.one_block_a_stage(name, "card_vs_cpu") as blocks:
+        if args.control:
+            for threads in args.control.split(","):
+                smoke.emit("cpu_control", network=name,
+                           blocks_a_stage=blocks,
+                           **cpu_control(name, int(threads)))
+            return 0
         smoke.emit("clamp_swings", network=name, blocks_a_stage=blocks,
                    **clamp_swings(args.device, name))
     return 0

@@ -351,7 +351,7 @@ def test_analyze_patient_matches_jax_and_caches(views, tmp_path,
     pt = ds.get_ground_truth().patient[0]
     rows = _pred_rows(ds, pt, np.random.default_rng(1))
     preds = pd.DataFrame(rows).set_index("index")
-    cases = [(None, None, 1), (rows, preds, 2)]
+    cases = [(None, None, 1), (lib.as_columns(rows), preds, 2)]
     for k, (port_preds, jax_preds, rolling) in enumerate(cases):
         got = lib.analyze_patient(pt, ds, str(tmp_path / "port{}".format(k)),
                                   port_preds, rolling_len=rolling,

@@ -89,7 +89,14 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.models.unet1d",
             "deepards_tpu_torch.models.autoencoder_cnn",
             "deepards_tpu_torch.data.siamese_dataset",
-            "deepards_tpu_torch.train.siamese_trainer"} <= set(
+            "deepards_tpu_torch.train.siamese_trainer",
+            "deepards_tpu_torch.eval.plots",
+            "deepards_tpu_torch.explain.frequency_analytics",
+            "deepards_tpu_torch.cli.cam_analytics",
+            "deepards_tpu_torch.cli.evaluate",
+            "deepards_tpu_torch.cli.mean_metrics",
+            "deepards_tpu_torch.cli.visualize_results",
+            "deepards_tpu_torch.cli.find_all_experiments"} <= set(
                 report["modules"])
     forbidden = [
         name for name in report["loaded"]
@@ -563,3 +570,83 @@ def test_siamese_and_autoencoder_train_without_pandas_sklearn_or_yaml(
     assert report["siamese_pretrained"] == 1 and report["predict_rows"] > 0
     assert report["autoencoder"] > 0
     assert (tmp_path / "models" / "siamese_cnn_linear.scaling.json").exists()
+
+
+_ANALYTICS_WITHOUT = r"""
+import json, sys
+for blocked in ("pandas", "sklearn", "yaml", "matplotlib", "jax",
+                "deepards_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from deepards_tpu_torch.data.synthetic import generate_cohort
+
+work = sys.argv[1]
+cohort = generate_cohort(work + "/cohort", n_patients=6,
+                         n_breaths_per_patient=80, seed=3)
+launches = chip_smoke.phase_analytics(
+    work, device="cpu", nb=4, kfolds=2, cam_kfolds=2, cam_samps=4,
+    real_windows=40, cohort=(work + "/cohort", cohort),
+    dtw_data=(work + "/cohort", cohort))
+print(json.dumps(launches))
+"""
+
+
+def test_analytics_need_no_pandas_sklearn_yaml_or_matplotlib(tmp_path):
+    """chip_smoke.py's analytics phase on the CPU at a small size (S = 4,
+    6 patients, 2 folds): a ``--perform-dtw-preprocessing`` training with
+    its frames held to the CPU's, a 40-window patient, ``cli.evaluate``
+    against ``cli.predict``, the three cam CLIs (their PNG stages refused
+    by name) and the results tools, with pandas, scikit-learn, PyYAML,
+    matplotlib, JAX and deepards_tpu blocked."""
+    out = subprocess.run(
+        [sys.executable, "-c", _ANALYTICS_WITHOUT, str(tmp_path)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    launches = json.loads(out.stdout.strip().splitlines()[-1])
+    assert launches == dict.fromkeys(
+        ("analytics_dtw_preprocessing", "analytics_real_size_patient",
+         "evaluate", "cam_analytics", "results_tools"), 0)
+    phase = [json.loads(line) for line in out.stdout.splitlines()
+             if line.startswith('{"phase": "analytics"')]
+    assert len(phase) == 1
+    vs_cpu = phase[0]["dtw_preprocessing"]["vs_cpu"]
+    assert vs_cpu["misses"] == [] and vs_cpu["patients"] >= 2
+    # each planted fault caught by the frames' contents
+    for missed in vs_cpu["planted"].values():
+        assert missed and not any(m.startswith("patients") for m in missed)
+    assert phase[0]["results_tools"]["results_files"] == 3
+    assert "PNG stage 1d_cam_intensities.png refused: matplotlib is " \
+        "missing" in out.stdout
+    assert (tmp_path / "analytics" / "dtw_cache").is_dir()
+
+
+def test_analytics_clis_raise_without_cuda(tmp_path):
+    """The new entry points refuse the default device with no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import chip_smoke
+    from deepards_tpu_torch.cli import cam_analytics, evaluate
+    from deepards_tpu_torch.config.config import Configuration
+    from deepards_tpu_torch.eval.plots import perform_dtw_preprocessing
+
+    ds = chip_smoke.cohort_dataset(
+        str(tmp_path), np.ones((4, 2, 1, 224), np.float32), [0, 1], 2)
+    data = ds.save(str(tmp_path / "ds.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cam_analytics.main(["one-d", "-p", data, "--model-pattern",
+                            str(tmp_path / "m{fold}")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cam_analytics.main(["butter-plot", "-p", data, "--index", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.evaluate(Configuration(overrides={
+            "train_from_pickle": data, "kfolds": 2}))
+    rows = [{"index": int(i), "hour": 0.0, "patient": str(p)}
+            for i, p in zip(ds.get_ground_truth().index,
+                            ds.get_ground_truth().patient)]
+    from types import SimpleNamespace
+    with pytest.raises(RuntimeError, match="CUDA"):
+        perform_dtw_preprocessing(SimpleNamespace(pred_to_hour_frame=rows),
+                                  ds, str(tmp_path / "cache"))
