@@ -88,7 +88,14 @@ beside the kernel's bound, ``cli.evaluate`` over the train phase's fold
 checkpoints against ``cli.predict``, ``cli.cam_analytics`` (one-d, two-d,
 butter) card vs CPU over the checkpoints of an FFT run and a Butterworth
 run, and ``cli.mean_metrics``, ``cli.visualize_results`` and
-``cli.find_all_experiments`` over the phase's results.  The CPU sides of
+``cli.find_all_experiments`` over the phase's results.  Then
+``experiments``, with PyYAML and pandas blocked: configs 1-5's experiment
+files through ``-co`` against their flags, ``cli.evaluate -co`` in the
+``evaluate_config`` layout, ``cli.registry_sweep`` over 8 generated
+configs, a reference-format pickle of a cohort trained through
+``--train-from-pickle`` against its ``.npz`` (caches and losses exactly
+equal, a shifted hour caught), and ``utils.profiling.trace`` around 3
+graphed steps (a CUDA kernel named in the trace).  The CPU sides of
 the card-vs-CPU checks of ``sequence``, ``siamese`` and ``backbones`` run
 in a worker process from the start (``CpuSides``), and every run of such
 a check replays the CPU float64 run's sort picks and clamp decisions.
@@ -5720,13 +5727,354 @@ def phase_analytics(workdir, device="cuda", per_cell=None,
             "results_tools": launches["results_tools"]}
 
 
+# the experiment files of benchmark configs 1-5, read through ``-co``
+EXPERIMENT_FILES = {
+    "config1": "unpadded_centered_nb20_cnn_linear.yml",
+    "config2": "padded_breath_by_breath_resnet18.yml",
+    "config3": "bm_pretraining_regression.yml",
+    "config4": "unpadded_centered_nb20_cnn_lstm.yml",
+    "config5": "unpadded_centered_nb20_protopnet.yml",
+}
+EXPERIMENT_DIR = os.path.join("deepards_tpu", "config", "experiment_files")
+EVALUATE_LAYOUT = os.path.join("deepards_tpu", "config", "evaluate_config",
+                               "unpadded_centered_nb20_cnn_linear.yml")
+# generated configs swept through cli.registry_sweep in the phase: the
+# benchmark configs' families, ProtoPNet, lstm_only, a 2D network and a
+# similarity-split holdout
+SWEEP_FILES = (
+    "unpadded_centered_nb20_cnn_linear.yml",
+    "padded_breath_by_breath_resnet18.yml",
+    "bm_pretraining_regression.yml",
+    "unpadded_centered_20_len_sub_batch_cnn_lstm.yml",
+    "protopnet_unpadded_centered.yml",
+    "lstm_only_experiment_benchmark.yml",
+    "unpadded_centered_nb20_cnn_linear_2d_bs2.yml",
+    "holdout_with_similarity_split.yml",
+)
+PICKLE_SHIFTED_ROW = 3  # the planted fault's row: its hours + 1
+TRACED_STEPS = 3
+
+
+@contextlib.contextmanager
+def blocked_modules(*names):
+    """``import`` of each of ``names`` (and its submodules) raises inside
+    the block; the modules loaded before come back after it."""
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k.split(".")[0] in names}
+    for name in names:
+        sys.modules[name] = None
+    try:
+        yield
+    finally:
+        for name in names:
+            sys.modules.pop(name, None)
+        sys.modules.update(saved)
+
+
+def configuration_diff(argv, want_argv):
+    """The keys whose values differ between the ``Configuration`` of
+    ``cli.train``'s ``argv`` and of ``want_argv`` (a bool flag left unset,
+    None, reads as false)."""
+    from deepards_tpu_torch.cli.train import build_parser
+    from deepards_tpu_torch.config.config import Configuration
+
+    got, want = (Configuration(build_parser().parse_args(a)).conf
+                 for a in (argv, want_argv))
+    diff = []
+    for key in sorted((set(got) | set(want)) - {"config_override"}):
+        a, b = got.get(key), want.get(key)
+        same = (bool(a) == bool(b) if isinstance(a, bool)
+                or isinstance(b, bool) else a == b)
+        if not same:
+            diff.append(key)
+    return diff
+
+
+def experiment_files_vs_flags(workdir):
+    """Configs 1-5's experiment files read through ``-co`` against their
+    hand-copied flags, key by key; a copy of config 1's with one value
+    changed must differ in that key alone."""
+    flags = {"config1": CONFIG1_FLAGS, "config2": CONFIG2_FLAGS,
+             "config3": CONFIG3_FLAGS, "config4": CONFIG4_FLAGS,
+             "config5": CONFIG5_FLAGS}
+    checked = {}
+    for name, fname in EXPERIMENT_FILES.items():
+        diff = configuration_diff(
+            ["-co", os.path.join(EXPERIMENT_DIR, fname)], flags[name])
+        if diff:
+            raise AssertionError("{} read through -co differs from {}_FLAGS "
+                                 "in {}".format(fname, name.upper(), diff))
+        checked[name] = fname
+    planted = os.path.join(workdir, "planted.yml")
+    with open(os.path.join(EXPERIMENT_DIR, EXPERIMENT_FILES["config1"])) as f:
+        text = f.read()
+    with open(planted, "w") as f:
+        f.write(text.replace("batch_size: 16", "batch_size: 32"))
+    caught = configuration_diff(["-co", planted], CONFIG1_FLAGS)
+    if caught != ["batch_size"]:
+        raise AssertionError("a changed batch_size was read as {}".format(
+            caught))
+    return {"equal": checked, "planted_fault": "batch_size 16 -> 32",
+            "planted_caught": caught}
+
+
+def write_reference_pickle(path, cache, dataset_type, shift_row=None):
+    """``cache``'s windows as the reference pickled a dataset: a
+    ``deepards.dataset.ARDSRawDataset`` whose ``all_sequences`` hold
+    [patient, data, target, hours] records (5 fields with metadata), made
+    here with stand-in ``deepards`` modules.  ``shift_row``: that row's
+    hours moved by one (a planted fault)."""
+    import pickle
+
+    top, sub = types.ModuleType("deepards"), types.ModuleType(
+        "deepards.dataset")
+    cls = type("ARDSRawDataset", (object,), {"__module__": "deepards.dataset"})
+    sub.ARDSRawDataset = cls
+    top.dataset = sub
+    saved = {k: sys.modules.get(k) for k in ("deepards", "deepards.dataset")}
+    sys.modules.update({"deepards": top, "deepards.dataset": sub})
+    try:
+        obj = cls()
+        obj.all_sequences = []
+        for i in range(len(cache.data)):
+            hours = cache.hours[i].tolist()
+            if i == shift_row:
+                hours = [h + 1.0 for h in hours]
+            record = [cache.patients[cache.patient_idx[i]], cache.data[i],
+                      cache.target[i], hours]
+            if cache.meta is not None:
+                record.insert(2, cache.meta[i])
+            obj.all_sequences.append(record)
+        obj.dataset_type = dataset_type
+        obj.total_kfolds = 5
+        obj.kfold_num = 0
+        obj.experiment_num = 1
+        with open(path, "wb") as f:
+            pickle.dump(obj, f, protocol=2)
+    finally:
+        for key, module in saved.items():
+            if module is None:
+                sys.modules.pop(key, None)
+            else:
+                sys.modules[key] = module
+    return path
+
+
+def cache_diff(got, want):
+    """The fields of two window caches that differ (NaN equal to NaN)."""
+    diff = [k for k in ("data", "target", "hours", "patient_idx")
+            if not np.array_equal(getattr(got, k), getattr(want, k),
+                                  equal_nan=True)]
+    if got.patients != want.patients:
+        diff.append("patients")
+    if (got.meta is None) != (want.meta is None) or (
+            got.meta is not None and not np.array_equal(got.meta, want.meta)):
+        diff.append("meta")
+    return diff
+
+
+def reference_pickle_runs(root, device, breaths=800):
+    """Config 1 (fold 0, 1 epoch) through the CLI on a seeded cohort,
+    its dataset saved as ``.npz`` and rewritten as a reference pickle;
+    the pickle's cache must equal the ``.npz``'s exactly (a planted hour
+    shift must not), and ``--train-from-pickle`` of each must give the
+    same losses exactly, with cuDNN's deterministic algorithms.  Returns
+    (fields, the ``.npz`` path, the models dir)."""
+    import torch
+
+    from deepards_tpu_torch.cli.train import main as train_main
+    from deepards_tpu_torch.data.dataset import ARDSRawDataset
+    from deepards_tpu_torch.data.synthetic import generate_cohort
+
+    def path(*parts):
+        return os.path.join(root, *parts)
+
+    cohort = generate_cohort(path("cohort"), n_patients=10,
+                             n_breaths_per_patient=breaths, seed=SEED + 13)
+    base = CONFIG1_FLAGS + ["--only-fold", "0", "--epochs", "1",
+                            "--device", device]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs, seconds = {}, {}
+    try:
+        for name, flags in (
+                ("etl", ["--data-path", path("cohort"), "--cohort-file",
+                         cohort, "--train-to-pickle", path("dataset.npz"),
+                         "--save-model", "experiments.pt",
+                         "--saved-models-dir", path("models")]),
+                ("npz", ["--train-from-pickle", path("dataset.npz")]),
+                ("reference", ["--train-from-pickle", path("reference.pkl")])):
+            if name == "reference":
+                saved = ARDSRawDataset.from_pickle(path("dataset.npz"))
+                write_reference_pickle(path("reference.pkl"), saved.cache,
+                                       saved.dataset_type)
+                write_reference_pickle(path("shifted.pkl"), saved.cache,
+                                       saved.dataset_type, PICKLE_SHIFTED_ROW)
+            t0 = time.perf_counter()
+            runs[name] = train_main(base + flags + [
+                "--results-dir", path(name + "_results")])
+            seconds[name] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = cache_diff(ARDSRawDataset.from_pickle(path("reference.pkl")).cache,
+                      saved.cache)
+    planted = cache_diff(ARDSRawDataset.from_pickle(path("shifted.pkl")).cache,
+                         saved.cache)
+    if diff or planted != ["hours"]:
+        raise AssertionError("reference pickle vs .npz cache: {} differ; "
+                             "the planted hour shift read as {}".format(
+                                 diff, planted))
+    losses = {}
+    for name in ("npz", "reference"):
+        meters = runs[name].results.reporting.meters
+        losses[name] = [meters[k].values for k in ("loss_fold_0",
+                                                   "test_loss_fold_0")]
+    if not losses["npz"][0] or losses["npz"] != losses["reference"]:
+        raise AssertionError("losses from the reference pickle {} differ "
+                             "from the .npz run's {}".format(
+                                 losses["reference"], losses["npz"]))
+    return {"windows": len(saved.cache.data),
+            "train_steps": len(losses["npz"][0]),
+            "test_steps": len(losses["npz"][1]),
+            "losses_equal": True, "cache_equal": True,
+            "planted_fault": "row {} hours + 1".format(PICKLE_SHIFTED_ROW),
+            "planted_caught": planted, "seconds": seconds}, \
+        path("dataset.npz"), path("models")
+
+
+def evaluate_layout(root, device, dataset, models_dir):
+    """``cli.evaluate -co`` over a yml in ``evaluate_config``'s layout
+    (its keys, ``models:`` of int keys holding lists) naming the run's
+    fold-0 checkpoint twice: the two pseudo-epochs must be equal, and
+    each patient's pred_frac within PREDICT_ATOL of the trainer's eval of
+    the same checkpoint (``--load-checkpoint --no-train``)."""
+    from deepards_tpu_torch.cli.evaluate import main as evaluate_main
+    from deepards_tpu_torch.cli.train import main as train_main
+    from deepards_tpu_torch.config import yamlfile
+
+    layout = yamlfile.read(EVALUATE_LAYOUT)
+    layout.update(train_from_pickle=dataset, device=device,
+                  results_dir=os.path.join(root, "evaluate_results"),
+                  models={0: ["experiments-fold0"] * 2})
+    yml = os.path.join(root, "evaluate.yml")
+    yamlfile.write(yml, layout)
+    t0 = time.perf_counter()
+    rows, aggregate, trainer = evaluate_main(
+        ["-co", yml, "--saved-models-dir", models_dir])
+    seconds = time.perf_counter() - t0
+    records = trainer.results.results
+    epochs = [{r["patient"]: r["pred_frac"] for r in records
+               if r["epoch_num"] == e} for e in (0, 1)]
+    evaluated = train_main(CONFIG1_FLAGS + [
+        "--only-fold", "0", "--epochs", "1", "--device", device,
+        "--train-from-pickle", dataset, "--load-checkpoint",
+        os.path.join(models_dir, "experiments-fold0"), "--no-train",
+        "--results-dir", os.path.join(root, "no_train_results")])
+    want = {r["patient"]: r["pred_frac"] for r in evaluated.results.results}
+    worst = max((abs(epochs[0][p] - want[p]) for p in want
+                 if p in epochs[0]), default=float("inf"))
+    if (epochs[0] != epochs[1] or sorted(epochs[0]) != sorted(want)
+            or worst > PREDICT_ATOL or len(rows) != 1):
+        raise AssertionError("evaluate -co: pseudo-epochs {}, the "
+                             "trainer's eval {}".format(epochs, want))
+    return {"patients": len(want), "pseudo_epochs": 2,
+            "max_abs_pred_frac_vs_eval": worst, "atol": PREDICT_ATOL,
+            "aggregate_rows": len(aggregate or ()), "seconds": seconds}
+
+
+def sweep_subset(root, device, files=SWEEP_FILES):
+    """``cli.registry_sweep --only files``: each config one debug epoch
+    and an eval through ``cli.train``, each ok."""
+    from deepards_tpu_torch.cli.registry_sweep import main as sweep_main
+
+    out = os.path.join(root, "sweep.json")
+    t0 = time.perf_counter()
+    results = sweep_main(["--out", out, "--cohort", os.path.join(
+        root, "regsweep", "cohort"), "--device", device,
+        "--only"] + list(files))
+    seconds = time.perf_counter() - t0
+    failed = {n: results.get(n, {}).get("error", "not run")
+              for n in files if not results.get(n, {}).get("ok")}
+    if failed:
+        raise AssertionError("registry sweep failed: {}".format(failed))
+    return {"wall_s": {n: results[n]["wall_s"] for n in files},
+            "backend": sorted({results[n]["backend"] for n in files}),
+            "seconds": seconds}
+
+
+def traced_steps(workdir, device):
+    """``utils.profiling.trace`` around TRACED_STEPS graphed device-cache
+    steps of config 1 (``StepTimer`` ticks after a synchronize); the
+    Chrome trace must name a CUDA kernel on the card."""
+    import torch
+
+    from deepards_tpu_torch.train.loop import _epoch_order
+    from deepards_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(SEED + 17)
+    conf = config_conf("config1")
+    n = TRACED_STEPS * conf.batch_size
+    ds = random_cache(rng, n, conf)
+    trainer, runner = config_fold("config1", workdir, device, True, ds)
+    ids, masks = _epoch_order(np.arange(n), conf.batch_size)
+    trainer._device_steps(runner, ds, ids, masks, True)  # warm up, capture
+    timer = profiling.StepTimer(warmup=0)
+    timer.tick()
+    with profiling.trace(os.path.join(workdir, "trace")) as path:
+        for step in range(TRACED_STEPS):
+            with profiling.annotate("step{}".format(step)):
+                trainer._device_steps(runner, ds, ids[step:step + 1],
+                                      masks[step:step + 1], True)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            timer.tick()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    spans = [e["name"] for e in events if e.get("name", "").startswith(
+        "step") and e.get("cat") == "user_annotation"]
+    if device == "cuda" and not kernels:
+        raise AssertionError("the trace names no CUDA kernel")
+    if len(spans) < TRACED_STEPS:
+        raise AssertionError("the trace holds {} step spans".format(
+            len(spans)))
+    report = timer.report(items_per_step=conf.batch_size)
+    print("StepTimer.report(): " + json.dumps(report), flush=True)
+    return {"kernel_names": len(kernels), "kernels_sample": kernels[:3],
+            "step_spans": len(spans), "report": report,
+            "trace_bytes": os.path.getsize(path)}
+
+
+def phase_experiments(workdir, device="cuda", breaths=800,
+                      sweep_files=SWEEP_FILES):
+    """The experiment-file tools and the reference's pickles, with PyYAML
+    and pandas blocked: configs 1-5's ymls through ``-co`` against their
+    flags, ``cli.evaluate -co`` over the ``evaluate_config`` layout,
+    ``cli.registry_sweep`` over ``sweep_files``, a reference pickle (of a
+    10-patient cohort of ``breaths`` breaths each) trained through
+    ``--train-from-pickle`` against its ``.npz``, and
+    ``utils.profiling.trace`` around graphed steps."""
+    root = os.path.join(workdir, "experiments")
+    os.makedirs(root, exist_ok=True)
+    with blocked_modules("yaml", "pandas"):
+        fields = {"files": experiment_files_vs_flags(root)}
+        pickled, dataset, models_dir = reference_pickle_runs(root, device,
+                                                             breaths)
+        fields["reference_pickle"] = pickled
+        fields["evaluate"] = evaluate_layout(root, device, dataset,
+                                             models_dir)
+        fields["sweep"] = sweep_subset(root, device, sweep_files)
+        fields["profiling"] = traced_steps(root, device)
+    emit("experiments", **fields)
+
+
 # the phases in the order of a whole run (``serve`` is the main path:
 # the server, then DTW of its breaths), and the phases each reads the
 # checkpoints or cohort of
 PHASES = ("serve", "train", "graph_vs_eager", "config1_surface", "config2",
           "config3", "config4", "config4_unshuffled", "config7", "config5",
           "explain", "sequence", "two_d", "siamese", "backbones",
-          "analytics", "dtw_similarity", "hetero")
+          "analytics", "experiments", "dtw_similarity", "hetero")
 PHASE_NEEDS = {"config1_surface": ("train",), "explain": ("train", "config5"),
                "analytics": ("train",)}
 
@@ -5908,8 +6256,11 @@ def run_phases(phases):
                 "analytics", phase_analytics, work,
                 per_cell=dtw_stats["fp32_per_cell"],
                 eval_models=os.path.join(work, "config1_models")) or {})
+        if "experiments" in phases:
+            by_path["experiments"] = counted("experiments", phase_experiments,
+                                             work)
     training = {name: n for name, n in by_path.items()
-                if name in CONFIG_FLAGS}
+                if name in CONFIG_FLAGS or name == "experiments"}
     emit("train_path_kernel_launches", dtw=training)
     if any(training.values()):
         failures["training_paths"] = "a training path launched the dtw " \

@@ -6,15 +6,18 @@ deepards/mean_metrics.py:19-120):
   python -m deepards_tpu_torch.cli.mean_metrics [--results-dir results]
       [files ...] [--plot]
 
-It reads the ``results`` rows (fold_num, epoch_num, patho, prediction,
-pred_frac) of the port's ``{name}_results_{uuid}.json`` files (all of
-them in --results-dir by default), recomputes each fold's and epoch's
-confusion counts, AUC, accuracy, sensitivity, specificity, precision and
-F1 in numpy (``eval.metrics.roc_auc``; no pandas, no scikit-learn), takes
-the mean over runs and reports each fold's epoch of the highest mean AUC.
-The tables are columns: a dict of numpy arrays under the JAX frames'
-column names.  The JAX package's ``*_patient_results.pkl`` frames need
-pandas and are not read here.  ``--plot`` draws the AUC by epoch with
+It reads the patient rows (fold_num, epoch_num, patho, prediction,
+pred_frac) of the port's ``{name}_results_{uuid}.json`` files and of the
+JAX package's and the reference's ``*_patient_results.pkl`` frames
+(through ``data.legacy_pickle``, no pandas; a frame of the legacy
+columns is lifted by ``eval.legacy_results.legacy_to_new_store``): by
+default the JSON files in --results-dir, or its frames where it holds no
+JSON (a JAX or a reference run's directory).  It recomputes each fold's
+and epoch's confusion counts, AUC, accuracy, sensitivity, specificity,
+precision and F1 in numpy (``eval.metrics.roc_auc``; no scikit-learn),
+takes the mean over runs and reports each fold's epoch of the highest
+mean AUC.  The tables are columns: a dict of numpy arrays under the JAX
+frames' column names.  ``--plot`` draws the AUC by epoch with
 matplotlib, on the CPU host.
 """
 import argparse
@@ -24,6 +27,8 @@ import os
 
 import numpy as np
 
+from deepards_tpu_torch.data import legacy_pickle
+from deepards_tpu_torch.eval.legacy_results import legacy_to_new_store
 from deepards_tpu_torch.eval.metrics import roc_auc
 
 METRIC_COLUMNS = ["AUC", "Accuracy", "sensitivity", "specificity",
@@ -31,7 +36,13 @@ METRIC_COLUMNS = ["AUC", "Accuracy", "sensitivity", "specificity",
 
 
 def load_results(path):
-    """A results JSON's patient rows."""
+    """The patient rows of a results JSON or a ``*_patient_results.pkl``
+    frame."""
+    if path.endswith(".pkl"):
+        frame = legacy_pickle.load_frame(path)
+        if "patient_id" in frame:
+            return legacy_to_new_store(frame.rows())
+        return frame.rows()
     with open(path) as f:
         return json.load(f)["results"]
 
@@ -138,14 +149,20 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="deepards-mean-metrics-torch")
     parser.add_argument("--results-dir", default="results")
     parser.add_argument("files", nargs="*",
-                        help="*_results_*.json files (default: all in "
-                        "--results-dir)")
+                        help="*_results_*.json and *_patient_results.pkl "
+                        "files (default: the JSON files in --results-dir, "
+                        "else its .pkl frames)")
     parser.add_argument("--plot", action="store_true")
     args = parser.parse_args(argv)
+    # the port's runs write JSON; a directory without any is a JAX or a
+    # reference run's, read through its frames
     files = args.files or sorted(
-        glob.glob(os.path.join(args.results_dir, "*_results_*.json")))
+        glob.glob(os.path.join(args.results_dir, "*_results_*.json"))
+        or glob.glob(os.path.join(args.results_dir,
+                                  "*_patient_results.pkl")))
     if not files:
-        raise SystemExit("no *_results_*.json files found")
+        raise SystemExit("no *_results_*.json or *_patient_results.pkl "
+                         "files found")
     mean_stats, stats = get_metrics(files)
     print("Mean stats at max-AUC epoch per fold ({} runs):".format(
         len(files)))

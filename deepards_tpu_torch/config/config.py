@@ -5,10 +5,12 @@ wins): CLI args > experiment override yml > ``DEFAULTS``.  Boolean flags
 of the CLI default to None, so booleans set in a yml survive the merge.
 
 ``DEFAULTS`` is ``deepards_tpu/config/defaults.yml`` as a Python dict (a
-test holds the two equal), so the training path needs no YAML parser.
-Only an experiment file given with ``-co`` is read with PyYAML, which is
-imported inside the function that reads it.
+test holds the two equal).  An experiment file given with ``-co`` is read
+by ``config.yamlfile``, the subset of YAML the repo's files use, with no
+PyYAML.
 """
+from deepards_tpu_torch.config import yamlfile
+
 
 DEFAULTS = {
     # generic training options
@@ -88,11 +90,9 @@ def load_defaults():
 
 
 def read_experiment_file(path):
-    """The overrides of an experiment ``.yml`` (PyYAML, imported here)."""
-    import yaml
-
-    with open(path) as f:
-        return yaml.load(f, Loader=yaml.FullLoader) or {}
+    """The overrides of an experiment ``.yml``, as PyYAML's loader reads
+    them."""
+    return yamlfile.read(path)
 
 
 class Configuration(object):

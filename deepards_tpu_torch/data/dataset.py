@@ -8,7 +8,8 @@ array) built once on the host; normalization runs per batch on the device
 machinery works on index arrays and draws from the same numpy streams as
 the JAX package, so both give the same windows, folds and oversampled
 indexes.  The saved ``.npz`` + JSON header format is shared with the JAX
-package; its reader of the reference's pickles is not ported.
+package, and the reference's pickles are read without pandas
+(``from_reference_pickle``, through ``data.legacy_pickle``).
 """
 import csv
 import datetime
@@ -20,7 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from deepards_tpu_torch.data import sampling
+from deepards_tpu_torch.data import legacy_pickle, sampling
 from deepards_tpu_torch.data.reader import read_processed_file
 from deepards_tpu_torch.data.windowing import (
     SEQ_LEN,
@@ -36,6 +37,15 @@ _ABS_BS_FORMATS = ("%Y-%m-%d %H-%M-%S.%f", "%Y-%m-%d %H:%M:%S.%f")
 # the cohort's m/d/Y forms (ISO forms go through fromisoformat)
 _COHORT_TIME_FORMATS = ("%m/%d/%Y %H:%M:%S", "%m/%d/%Y %H:%M", "%m/%d/%Y")
 _STUDY_WINDOW = datetime.timedelta(hours=24)
+# runtime attributes a saved dataset does not carry
+_RUNTIME_DEFAULTS = dict(
+    bootstrap=False, random_kfold=False, oversample_minority=False,
+    oversample_all_factor=1.0, undersample_factor=-1,
+    undersample_std_factor=0.2, train_patient_fraction=1.0,
+    transforms=None, butter_low=None, butter_high=None,
+    post_hoc_downsampling=None, fft_filtering_low=None,
+    fft_filtering_high=None,
+)
 
 
 class GroundTruth(NamedTuple):
@@ -607,13 +617,13 @@ class ARDSRawDataset:
         fft_filtering_high=None,
         seed=42,
     ):
-        """Load a saved ``.npz`` dataset and re-inject runtime arguments
-        (reference: deepards/dataset.py:706-763)."""
-        if not data_path.endswith(".npz"):
-            raise NotImplementedError(
-                "only the .npz dataset format is read; the reference's "
-                "pickles (from_reference_pickle) are not ported")
-        ds = cls._from_npz(data_path)
+        """Load a saved dataset (the ``.npz`` format, or any other path as
+        a reference pickle) and re-inject runtime arguments (reference:
+        deepards/dataset.py:706-763)."""
+        if data_path.endswith(".npz"):
+            ds = cls._from_npz(data_path)
+        else:
+            ds = cls.from_reference_pickle(data_path)
         ds.oversample_minority = oversample_minority
         ds.train_patient_fraction = train_patient_fraction
         ds.transforms = transforms
@@ -679,19 +689,66 @@ class ARDSRawDataset:
         ds.scaling_factors = {}
         ds.seed = header.get("seed", 42)
         ds._rng = np.random.default_rng(ds.seed)
-        # runtime attributes a saved cache does not carry
-        ds.bootstrap = False
-        ds.random_kfold = False
-        ds.oversample_minority = False
-        ds.oversample_all_factor = 1.0
-        ds.undersample_factor = -1
-        ds.undersample_std_factor = 0.2
-        ds.train_patient_fraction = 1.0
-        ds.transforms = None
-        ds.butter_low = None
-        ds.butter_high = None
-        ds.post_hoc_downsampling = None
-        ds.fft_filtering_low = None
-        ds.fft_filtering_high = None
+        ds.__dict__.update(_RUNTIME_DEFAULTS)
+        ds.derive_scaling_factors()
+        return ds
+
+    @classmethod
+    def from_reference_pickle(cls, path):
+        """The reference's whole-dataset pickle (``deepards.dataset``
+        objects whose ``all_sequences`` hold 4-, 5- or 6-field records),
+        read without pandas or the reference package
+        (``data.legacy_pickle``), as a dense cache with the pickle's
+        scalar attributes (reference: deepards/dataset.py:944-968;
+        SURVEY.md §7.3)."""
+        obj = legacy_pickle.load(path)
+        rows = []
+        for seq in obj.__dict__["all_sequences"]:
+            meta = None
+            if len(seq) == 4:
+                # a regression record's data is (1, 224)
+                # (reference: deepards/dataset.py:962)
+                pt, data, target, hrs = seq
+            elif len(seq) == 5:
+                pt, data, meta, target, hrs = seq
+            elif len(seq) == 6:
+                pt, data, m, mm, target, hrs = seq
+                meta = np.stack([m, mm])
+            else:
+                raise ValueError("a record of {} fields; the reference "
+                                 "writes 4, 5 or 6".format(len(seq)))
+            data = np.asarray(data, dtype=np.float32)
+            if data.ndim == 2:
+                data = data[None]
+            hrs = np.atleast_1d(np.asarray(hrs, dtype=np.float32))
+            rows.append((str(pt), data, meta,
+                         np.asarray(target, np.float32), list(hrs)))
+        d = obj.__dict__
+        ds = cls.__new__(cls)
+        ds.cache = rows_to_cache(rows)
+        ds.train = True
+        ds.dataset_type = d.get("dataset_type")
+        ds.experiment_num = d.get("experiment_num")
+        ds.cohort_file = d.get("cohort_file")
+        ds.total_kfolds = d.get("total_kfolds")
+        ds.kfold_num = d.get("kfold_num")
+        ds.kfold_patient_splits = {}
+        ds.vent_bn_frac_missing = 0.5
+        ds.whole_patient_super_batch = d.get("whole_patient_super_batch",
+                                             False)
+        ds.add_fft = d.get("add_fft", False)
+        ds.only_fft = d.get("only_fft", False)
+        ds.fft_real_only = d.get("fft_real_only", False)
+        ds.drop_if_under_r2 = 0.0
+        ds.drop_i_lim = d.get("drop_i_lim", False)
+        ds.drop_e_lim = d.get("drop_e_lim", False)
+        ds.truncate_e_lim = d.get("truncate_e_lim")
+        ds.unpadded_downsample_factor = d.get("unpadded_downsample_factor",
+                                              4.0)
+        ds.dtw_scores = {}
+        ds.scaling_factors = {}
+        ds.seed = 42
+        ds._rng = np.random.default_rng(42)
+        ds.__dict__.update(_RUNTIME_DEFAULTS)
         ds.derive_scaling_factors()
         return ds

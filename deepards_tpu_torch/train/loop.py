@@ -1053,6 +1053,16 @@ class Trainer:
             losses, outs = self._host_steps(runner, PrefetchLoader(
                 loader, map_fn=lambda b: self.device_batch(b, batch_size)),
                 len(loader), train=False)
+        if losses is None:
+            # an empty split (a bootstrap run's test split can be): no
+            # losses, and a classifier records no predictions, as in the
+            # JAX package
+            shape = ((0, self.n_sub_batches, 2) if self.spec.expand_obs_idx
+                     else (0, 2))
+            self._defer(lambda: self._record_eval(
+                np.zeros(0, np.float32), np.zeros(shape, np.float32), idx,
+                dataset, fold_num, epoch_num))
+            return
         # both paths visit idx in order; the pad rows end the last batch
         self._defer(lambda: self._record_eval(
             losses.cpu().numpy(),

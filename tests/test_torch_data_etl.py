@@ -1,11 +1,13 @@
 """The port's ETL against the JAX package, exactly: the window cache of
 every dataset type the CLI offers, the 5-fold patient splits (shuffled
 and not), the per-fold scaling factors, the oversampled train indexes,
-the ground truth, and the ``.npz`` dataset format in both directions."""
+the ground truth, the ``.npz`` dataset format in both directions, and
+the reference's pickle."""
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from deepards_tpu.cli.train import DATASET_TYPES
 from deepards_tpu.data.dataset import ARDSRawDataset as JaxDataset
 from deepards_tpu_torch.data import pipeline
@@ -113,8 +115,13 @@ def test_npz_round_trip_both_ways(ten_patients, tmp_path):
             for a, b in zip(got.scaling_for_current_fold(),
                             want.scaling_for_current_fold()):
                 np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        ARDSRawDataset.from_pickle(str(tmp_path / "reference.pkl"))
+    # any other path is the reference's pickle, read without pandas
+    ref = chip_smoke.write_reference_pickle(
+        str(tmp_path / "reference.pkl"), train.cache, train.dataset_type)
+    got = ARDSRawDataset.from_pickle(ref)
+    assert chip_smoke.cache_diff(got.cache, train.cache) == []
+    assert chip_smoke.cache_diff(
+        got.cache, JaxDataset.from_pickle(ref).cache) == []
 
 
 def test_unported_batch_transforms_raise(ten_patients):

@@ -96,8 +96,16 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.cli.evaluate",
             "deepards_tpu_torch.cli.mean_metrics",
             "deepards_tpu_torch.cli.visualize_results",
-            "deepards_tpu_torch.cli.find_all_experiments"} <= set(
-                report["modules"])
+            "deepards_tpu_torch.cli.find_all_experiments",
+            "deepards_tpu_torch.config.yamlfile",
+            "deepards_tpu_torch.config.generate_experiments",
+            "deepards_tpu_torch.cli.run_experiments",
+            "deepards_tpu_torch.cli.registry_sweep",
+            "deepards_tpu_torch.data.legacy_pickle",
+            "deepards_tpu_torch.eval.legacy_results",
+            "deepards_tpu_torch.cli.create_datasets",
+            "deepards_tpu_torch.cli.anonymize_cohort",
+            "deepards_tpu_torch.utils.profiling"} <= set(report["modules"])
     forbidden = [
         name for name in report["loaded"]
         if name == "deepards_tpu" or name.startswith("deepards_tpu.")
@@ -650,3 +658,124 @@ def test_analytics_clis_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         perform_dtw_preprocessing(SimpleNamespace(pred_to_hour_frame=rows),
                                   ds, str(tmp_path / "cache"))
+
+
+def test_no_port_module_imports_yaml_or_pandas():
+    """No module of the port, and not chip_smoke.py, imports PyYAML,
+    pandas or pyarrow, at module level or inside a function."""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(ROOT, "deepards_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            offenders += [(os.path.relpath(path, ROOT), node.lineno, name)
+                          for name in names if name.split(".")[0] in (
+                              "yaml", "pandas", "pyarrow")]
+    assert len(files) > 90 and offenders == []
+
+
+_EXPERIMENT_FILES_WITHOUT = r"""
+import json, sys
+for blocked in ("pandas", "sklearn", "yaml", "jax", "deepards_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+from deepards_tpu_torch.cli.evaluate import main as evaluate
+from deepards_tpu_torch.cli.train import main as train
+from deepards_tpu_torch.config import yamlfile
+from deepards_tpu_torch.data.synthetic import generate_cohort
+
+work = sys.argv[1]
+cohort = generate_cohort(work + "/cohort", n_patients=10,
+                         n_breaths_per_patient=80, seed=3)
+trainer = train([
+    "-co", "deepards_tpu/config/experiment_files/"
+    "unpadded_centered_nb20_cnn_linear.yml",
+    "--data-path", work + "/cohort", "--cohort-file", cohort,
+    "--n-sub-batches", "4", "--batch-size", "8", "--only-fold", "0",
+    "--epochs", "1", "--device", "cpu", "--results-dir", work + "/results",
+    "--train-to-pickle", work + "/ds.npz", "--save-model", "m.pt",
+    "--saved-models-dir", work + "/models"])
+layout = yamlfile.read("deepards_tpu/config/evaluate_config/"
+                       "unpadded_centered_nb20_cnn_linear.yml")
+layout.update(train_from_pickle=work + "/ds.npz", device="cpu",
+              n_sub_batches=4, batch_size=8, results_dir=work + "/eval",
+              models={0: ["m-fold0", "m-fold0"]})
+yamlfile.write(work + "/evaluate.yml", layout)
+rows, aggregate, ev = evaluate(["-co", work + "/evaluate.yml",
+                                "--saved-models-dir", work + "/models"])
+print(json.dumps({
+    "conf": {k: trainer.conf.get(k) for k in (
+        "kfolds", "clip_grad", "clip_val", "oversample_minority",
+        "random_kfold", "epochs")},
+    "steps": len(trainer.results.get_meter("loss", 0).values),
+    "folds": [r["Fold"] for r in rows],
+    "epochs": sorted({r["epoch_num"] for r in ev.results.results})}))
+"""
+
+
+def test_experiment_files_train_and_evaluate_without_pyyaml(tmp_path):
+    """``cli.train -co`` of config 1's experiment file and ``cli.evaluate
+    -co`` of a yml in the ``evaluate_config`` layout (``models:`` of int
+    keys) run with PyYAML, pandas, scikit-learn, JAX and deepards_tpu
+    blocked."""
+    out = subprocess.run(
+        [sys.executable, "-c", _EXPERIMENT_FILES_WITHOUT, str(tmp_path)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["conf"] == {"kfolds": 5, "clip_grad": True,
+                              "clip_val": 0.01, "oversample_minority": True,
+                              "random_kfold": False, "epochs": 1}
+    assert report["steps"] > 0
+    assert report["folds"] == [0] and report["epochs"] == [0, 1]
+
+
+_EXPERIMENTS_PHASE_WITHOUT = r"""
+import json, sys
+for blocked in ("pandas", "sklearn", "yaml", "jax", "deepards_tpu"):
+    sys.modules[blocked] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+chip_smoke.phase_experiments(
+    sys.argv[1], device="cpu", breaths=240,
+    sweep_files=("unpadded_centered_nb20_cnn_linear.yml",
+                 "holdout_with_similarity_split.yml"))
+"""
+
+
+def test_experiments_phase_needs_no_yaml_or_pandas(tmp_path):
+    """chip_smoke.py's experiments phase on the CPU at a small size (a
+    10 x 240 cohort, 2 swept configs), with PyYAML, pandas, scikit-learn,
+    JAX and deepards_tpu blocked: every check and planted fault."""
+    out = subprocess.run(
+        [sys.executable, "-c", _EXPERIMENTS_PHASE_WITHOUT, str(tmp_path)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    phase = [json.loads(line) for line in out.stdout.splitlines()
+             if line.startswith('{"phase": "experiments"')]
+    assert len(phase) == 1
+    fields = phase[0]
+    assert len(fields["files"]["equal"]) == 5
+    assert fields["files"]["planted_caught"] == ["batch_size"]
+    assert fields["reference_pickle"]["losses_equal"]
+    assert fields["reference_pickle"]["planted_caught"] == ["hours"]
+    assert fields["evaluate"]["max_abs_pred_frac_vs_eval"] <= 1e-5
+    assert sorted(fields["sweep"]["wall_s"]) == [
+        "holdout_with_similarity_split.yml",
+        "unpadded_centered_nb20_cnn_linear.yml"]
+    assert fields["profiling"]["step_spans"] == 3
