@@ -18,7 +18,7 @@ benchmark config 1 trained through ``deepards_tpu_torch.cli.train`` on a
 seeded synthetic cohort (5 folds, 2 epochs, every step a CUDA-graph
 replay), three steps held against the CPU in float32 and float64, a
 trained checkpoint served, and the bf16 step and an epoch (1024 windows
-eagerly, 4096 as graph replays) timed.  ``graph_vs_eager`` holds 8 graphed
+eagerly, 4096 as graph replays) timed.  ``graph_vs_eager`` holds 2 graphed
 device-cache steps of config 1 to the same steps run eagerly, and
 ``config1_surface`` drives the rest of config 1's trainer through the CLI
 (augmentation, the Butterworth filter, fused host epochs, step
@@ -27,7 +27,7 @@ against the trainer's eval, the metadata input, the FFT channels).
 Then benchmark configs 2, 3 and 4 (``config2``: cnn_linear over resnet18
 on padded breaths; ``config3``: the breath-metadata regressor, Adam, the
 ``main`` holdout; ``config4``: cnn_lstm), each trained through the CLI at
-full width, 3 float32 steps held against the CPU, 8 graphed steps held to
+full width, 3 float32 steps held against the CPU, 2 graphed steps held to
 eager ones, a trained checkpoint served and predicted (configs 2 and 4),
 and the bf16 graphed step timed over a 4096-window device cache; no
 training path may launch the DTW kernel.
@@ -88,14 +88,26 @@ beside the kernel's bound, ``cli.evaluate`` over the train phase's fold
 checkpoints against ``cli.predict``, ``cli.cam_analytics`` (one-d, two-d,
 butter) card vs CPU over the checkpoints of an FFT run and a Butterworth
 run, and ``cli.mean_metrics``, ``cli.visualize_results`` and
-``cli.find_all_experiments`` over the phase's results.  Then
+``cli.find_all_experiments`` over the phase's results; between the DTW
+run and the real-size patient, config 1 again with
+``--plot-dtw-with-disease --plot-tiled-disease-evol`` (the last fold): its
+DTW frames equal the DTW run's, its kernel launches counted, each PNG
+stage refused by name on the card and its ``.npz`` written.  Then
 ``experiments``, with PyYAML and pandas blocked: configs 1-5's experiment
 files through ``-co`` against their flags, ``cli.evaluate -co`` in the
 ``evaluate_config`` layout, ``cli.registry_sweep`` over 8 generated
 configs, a reference-format pickle of a cohort trained through
 ``--train-from-pickle`` against its ``.npz`` (caches and losses exactly
 equal, a shifted hour caught), and ``utils.profiling.trace`` around 3
-graphed steps (a CUDA kernel named in the trace).  The CPU sides of
+graphed steps (a CUDA kernel named in the trace).  Then ``distributed``:
+config 1 over 2 ranks of ``cli.launch_distributed`` (gloo, both on the
+one card, float32, fold 0 x 1 epoch) against one process at
+``--dp-devices 2``: the ranks' results equal, an eval-only fold equal
+(AUC exact, losses rtol 1e-5), 3 trained steps at batch 15 (padded to 16
+and sharded) held as config 1's card-vs-CPU check holds them, 3 float64
+steps of 2 ranks against one process, and the ranks' eager step timed
+beside the one process's graphed step; no DTW.
+The CPU sides of
 the card-vs-CPU checks of ``sequence``, ``siamese`` and ``backbones`` run
 in a worker process from the start (``CpuSides``), and every run of such
 a check replays the CPU float64 run's sort picks and clamp decisions.
@@ -1963,8 +1975,9 @@ def random_cache(rng, n, conf):
 def config_fold(name, workdir, device, graphs, ds, dropout=True, *flags):
     """A ``Trainer`` of config ``name``'s flags (and ``flags``) with fold
     0's state built without a cohort, and a ``StepRunner`` of its steps
-    over unit scaling for batches of ``ds``: CUDA-graph replays with
-    ``graphs`` (the trainer's own choice on the card), else eager."""
+    over unit scaling for batches of ``ds`` (this rank's rows of them in
+    a run over processes): CUDA-graph replays with ``graphs`` (the
+    trainer's own choice on the card), else eager."""
     import torch
 
     from deepards_tpu_torch.data.pipeline import transform_batch
@@ -1984,9 +1997,10 @@ def config_fold(name, workdir, device, graphs, ds, dropout=True, *flags):
         eval_dropout_active=dropout and not trainer.spec.eval_dropout_off,
         target_mode=trainer.spec.target_mode)
     runner = StepRunner(state, train_step, eval_step,
-                        (conf.batch_size,) + ds.cache.data.shape[1:],
+                        (trainer.batch_rows()[1],) + ds.cache.data.shape[1:],
                         target_width=ds.cache.target.shape[1],
-                        graphed=graphs and trainer.device.type == "cuda")
+                        graphed=graphs and trainer.device.type == "cuda",
+                        axis=trainer.axis)
     return trainer, runner
 
 
@@ -2086,7 +2100,9 @@ def train_numbers(workdir, device, name="config1",
     return out
 
 
-GRAPH_STEPS = 8  # graph_vs_eager: device-cache steps from one fold state
+# graph_vs_eager: device-cache steps from one fold state (few, for the
+# whole script's time: PERF.md §4)
+GRAPH_STEPS = 2
 GRAPH_ATOL = 1e-6
 
 
@@ -4320,9 +4336,9 @@ def phase_explain(workdir, device="cuda", cam_checkpoint=None,
 # -- the 2D breath-image networks ---------------------------------------------
 
 IMAGE = 224  # an image's H and W: 224 rows of 224 samples
-# the timed host epoch: fold 0's train split of 16 patients x 20 images
-# (12 patients, 240 images)
-MEASURE_PATIENTS, MEASURE_IMAGES_EACH = 16, 20
+# the timed host epoch: fold 0's train split of 10 patients x 20 images
+# (8 patients, 160 images; 16 patients, 240 images before the cut)
+MEASURE_PATIENTS, MEASURE_IMAGES_EACH = 10, 20
 
 
 def two_d_trainer(name, device, *flags):
@@ -5620,6 +5636,70 @@ def dtw_cohort(workdir):
         seed=SEED, subdirs=("all_data",))
 
 
+def plot_options_run(root, dtw_data, device, kfolds, nb, want):
+    """Config 1 through ``cli.train`` with ``--plot-dtw-with-disease
+    --plot-tiled-disease-evol`` (the last fold only, 1 epoch, in a
+    directory of its own, so its DTW cache starts empty): its DTW frames
+    equal ``want`` (the ``--perform-dtw-preprocessing`` run's: the last
+    fold's test windows, whatever the predictions), each PNG stage
+    refused by name on the card (drawn on the CPU host with matplotlib)
+    and its ``.npz`` written.  Returns (fields, failures)."""
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+    from deepards_tpu_torch.utils import figures
+
+    work = os.path.join(root, "plots")
+    os.makedirs(work)
+    stages, printed = [], io.StringIO()
+    draw = figures.draw_or_refuse
+
+    def recording(stage_list, dev):
+        stage_list = list(stage_list)
+        stages.extend(path for path, _ in stage_list)
+        with contextlib.redirect_stdout(printed):
+            return draw(stage_list, dev)
+
+    figures.draw_or_refuse = recording
+    try:
+        with contextlib.chdir(work):
+            trainer = analytics_run(
+                dtw_data, device, ["--kfolds", str(kfolds), "--only-fold",
+                                   str(kfolds - 1), "--n-sub-batches",
+                                   str(nb), "--plot-dtw-with-disease",
+                                   "--plot-tiled-disease-evol"],
+                "plots", os.path.join(work, "results"),
+                os.path.join(work, "models"))
+    finally:
+        figures.draw_or_refuse = draw
+    launches = dtw_ops.launches
+    print(printed.getvalue(), end="", flush=True)
+    refused = [ln for ln in printed.getvalue().splitlines()
+               if " refused: " in ln]
+    npz = sorted(glob.glob(os.path.join(work, "prediction_plots", "*.npz")))
+    got = trainer.dtw_frames
+    unequal = sorted(pt for pt in set(got) | set(want or {}) if want is None
+                     or pt not in got or pt not in want or any(
+                         not np.array_equal(getattr(got[pt], f),
+                                            getattr(want[pt], f),
+                                            equal_nan=True)
+                         for f in ("index", "hour", "dtw")))
+    fields = {"flags": ["--plot-dtw-with-disease",
+                        "--plot-tiled-disease-evol", "--only-fold",
+                        str(kfolds - 1)],
+              "frames": len(got), "frames_unequal": unequal,
+              "launches": launches, "png_stages": stages,
+              "refused": refused[:4], "npz": len(npz)}
+    missed = []
+    if unequal:
+        missed.append("plot run's DTW frames differ from the DTW run's: "
+                      "{}".format(unequal))
+    if not stages or len(npz) != len(stages):
+        missed.append("{} PNG stages, {} .npz".format(len(stages), len(npz)))
+    if device != "cpu" and len(refused) != len(stages):
+        missed.append("{} of {} PNG stages refused on the card".format(
+            len(refused), len(stages)))
+    return fields, missed
+
+
 def phase_analytics(workdir, device="cuda", per_cell=None,
                     eval_models=None, nb=S, kfolds=ANALYTICS_KFOLDS,
                     cam_kfolds=CAM_KFOLDS, cam_samps=CAM_SAMPS,
@@ -5684,6 +5764,12 @@ def phase_analytics(workdir, device="cuda", per_cell=None,
                 out["vs_cpu"]["misses"])]
         return ()
 
+    def plot_training(fields):
+        fields["plots"], missed = plot_options_run(
+            root, dtw_data, device, kfolds, nb,
+            trainers[0].dtw_frames if trainers else None)
+        return missed
+
     def real_size(fields):
         fields["real_size_patient"] = real_size_patient(
             root, device, per_cell, real_windows, nb)
@@ -5705,6 +5791,7 @@ def phase_analytics(workdir, device="cuda", per_cell=None,
 
     fields, failed = run_stages(
         "analytics", [("dtw_preprocessing", dtw_training),
+                      ("plots", plot_training),
                       ("real_size_patient", real_size),
                       ("evaluate", evaluate), ("cam_analytics", cams),
                       ("results_tools", tools)], device,
@@ -5712,6 +5799,7 @@ def phase_analytics(workdir, device="cuda", per_cell=None,
     fields["launches_by_path"] = launches
     emit("analytics", **fields)
     if device != "cpu" and not (launches["dtw_preprocessing"]
+                                and launches["plots"]
                                 and launches["real_size_patient"]):
         failed.append("a DTW path launched no kernel: {}".format(launches))
     if any(launches[k] for k in ("evaluate", "cam_analytics",
@@ -5721,6 +5809,7 @@ def phase_analytics(workdir, device="cuda", per_cell=None,
     if failed:
         raise AssertionError("; ".join(failed))
     return {"analytics_dtw_preprocessing": launches["dtw_preprocessing"],
+            "analytics_plots": launches["plots"],
             "analytics_real_size_patient": launches["real_size_patient"],
             "evaluate": launches["evaluate"],
             "cam_analytics": launches["cam_analytics"],
@@ -6045,6 +6134,343 @@ def traced_steps(workdir, device):
             "trace_bytes": os.path.getsize(path)}
 
 
+# the distributed phase: config 1 over 2 ranks of cli.launch_distributed
+# (gloo, both on the one card) against one process at dp_devices 2
+DIST_RANKS = 2
+DIST_BATCH = 15  # the trained run's batch: odd, so the pad row is sharded
+DIST_STEPS = 3  # the float32 steps whose params are held
+DIST_TIMED_STEPS = 10
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_env():
+    """The ranks' environment: the checkout importable, one torch thread
+    each, no TF32 in cuBLAS or cuDNN (``phase_env`` turns it off in this
+    process), so that float32 is float32 on both sides, and each
+    ``cli.train`` rank writing its DTW launches to its results dir."""
+    from deepards_tpu_torch.cli.train import LAUNCH_COUNTS_ENV
+
+    return dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""), OMP_NUM_THREADS="1", NVIDIA_TF32_OVERRIDE="0",
+        **{LAUNCH_COUNTS_ENV: "1"})
+
+
+def rank_launches(path):
+    """The DTW launches a rank wrote to ``path`` when it ended; a rank
+    that wrote none raises."""
+    if not os.path.exists(path):
+        raise AssertionError("{}: the rank wrote no launch count".format(
+            path))
+    with open(path) as f:
+        return json.load(f)["dtw"]
+
+
+def dist_saved(results_dir):
+    """(meters, patient rows) of a run's results."""
+    with np.load(glob.glob(os.path.join(results_dir,
+                                        "meters_*.npz"))[0]) as z:
+        meters = {k: z[k] for k in z.files}
+    with open(glob.glob(os.path.join(results_dir,
+                                     "*_patient_results.json"))[0]) as f:
+        return meters, json.load(f)
+
+
+def dist_runs(workdir, device, cohort):
+    """Config 1's fold 0 (1 epoch, float32) four ways: an eval-only fold
+    (``--no-train``, the fold's fixed init) and a trained fold at batch
+    DIST_BATCH with a checkpoint after DIST_STEPS steps, each over
+    DIST_RANKS ranks of ``cli.launch_distributed`` (started first, in the
+    background) and in this process at ``--dp-devices 2`` meanwhile.
+    Returns {run: (results dirs, models dir)}."""
+    from deepards_tpu_torch.cli.train import main as train_main
+
+    flags = CONFIG1_FLAGS + [
+        "--data-path", cohort[0], "--cohort-file", cohort[1],
+        "--only-fold", "0", "--epochs", "1", "--compute-dtype", "float32",
+        "--device", device]
+    extra = {"eval": ["--no-train"],
+             "train": ["--batch-size", str(DIST_BATCH), "--save-model",
+                       "dist.pt", "--checkpoint-every-n-steps",
+                       str(DIST_STEPS), "--fused-steps", str(DIST_STEPS)]}
+    procs, out = [], {}
+    try:
+        for run, more in extra.items():
+            root = os.path.join(workdir, "distributed",
+                                "{}_{}".format(run, DIST_RANKS))
+            os.makedirs(root)
+            log = open(os.path.join(root, "log.txt"), "w")
+            procs.append((root, log, subprocess.Popen(
+                [sys.executable, "-m",
+                 "deepards_tpu_torch.cli.launch_distributed", "-n",
+                 str(DIST_RANKS), "--results-dir",
+                 os.path.join(root, "results"), "--"] + flags + more + [
+                     "--saved-models-dir", os.path.join(root, "models")],
+                cwd=HERE, env=dist_env(), stdout=log,
+                stderr=subprocess.STDOUT)))
+            out["{}_{}".format(run, DIST_RANKS)] = (
+                [os.path.join(root, "results", "rank{}".format(r))
+                 for r in range(DIST_RANKS)], os.path.join(root, "models"))
+        for run, more in extra.items():
+            root = os.path.join(workdir, "distributed", "{}_1".format(run))
+            train_main(flags + more + [
+                "--saved-models-dir", os.path.join(root, "models"),
+                "--dp-devices", str(DIST_RANKS), "--results-dir",
+                os.path.join(root, "results")])
+            out["{}_1".format(run)] = ([os.path.join(root, "results")],
+                                       os.path.join(root, "models"))
+        failed = []
+        for root, log, proc in procs:
+            if proc.wait(timeout=600):
+                failed.append(root)
+            log.close()
+        if failed:
+            raise AssertionError("distributed runs failed: {}".format(
+                {r: open(os.path.join(r, "log.txt")).read()[-1500:]
+                 for r in failed}))
+    finally:
+        for _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return out
+
+
+def dist_steps(device, dtype, rows=slice(None)):
+    """Config 1's 3 steps of ``CardVsCpu`` (its params, batches of 16 with
+    a pad row, dropout off, training's clamp) on ``device`` in ``dtype``,
+    over ``rows`` of each batch: {param: value after step 3} in
+    float64."""
+    _, params, _ = CardVsCpu("config1").run(device, dtype, rows=rows)
+    return {k: v.numpy() for k, v in params[-1].items()}
+
+
+def dist_timed_runner(workdir, device, graphs):
+    """(trainer, runner) of config 1's step (its batch, bf16, dropout on)
+    over a random batch already in the runner's buffers: this rank's
+    rows of it in a run over processes."""
+    import torch
+
+    conf = config_conf("config1")
+    ds = random_cache(np.random.default_rng(SEED + 3), conf.batch_size, conf)
+    trainer, runner = config_fold("config1", workdir, device, graphs, ds)
+    dev = trainer._get_device_cache(ds)
+    ids = torch.arange(conf.batch_size, device=trainer.device)[
+        trainer.axis.local(conf.batch_size)]
+    for key, table in dev.items():
+        torch.index_select(table, 0, ids, out=runner.inputs[key])
+    runner.inputs["mask"].fill_(1.0)
+    return trainer, runner
+
+
+def distributed_worker(rank, port, result, workdir, device):
+    """One of DIST_RANKS ranks: config 1's 3 float64 steps over its rows
+    of each batch (``dist_steps`` within ``mesh.sharded_rows``), then, on
+    the card, once ``result`` + ".go" exists (the card quiet), its eager
+    sharded step timed.  Rank 0 writes the params to ``result`` (an
+    ``.npz``) and the times beside it (``.json``); each rank its DTW
+    launches (``.launches<rank>.json``)."""
+    import torch
+
+    import deepards_tpu_torch.ops.dtw as dtw_ops
+    from deepards_tpu_torch.parallel import mesh
+
+    dtw_ops.launches = 0
+    torch.backends.cudnn.allow_tf32 = False  # as phase_env in the parent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.initialize_distributed("127.0.0.1:{}".format(port), DIST_RANKS,
+                                rank)
+    axis = mesh.make_data_axis()
+    with mesh.sharded_rows(axis):
+        params = dist_steps(device, torch.float64, axis.local(BATCH))
+    if rank == 0:
+        np.savez(result, **params)
+    times = {}
+    if device == "cuda":
+        _, runner = dist_timed_runner(workdir, device, False)
+        while not os.path.exists(result + ".go"):
+            time.sleep(0.1)
+        times = {"train_step_ms": cuda_ms(runner.train, warmup=3,
+                                          reps=DIST_TIMED_STEPS),
+                 "eval_step_ms": cuda_ms(runner.eval, warmup=3,
+                                         reps=DIST_TIMED_STEPS),
+                 "rows_per_rank": runner.inputs["data"].shape[0]}
+    if rank == 0:
+        with open(result + ".json", "w") as f:
+            json.dump(times, f)
+    with open("{}.launches{}.json".format(result, rank), "w") as f:
+        json.dump({"dtw": dtw_ops.launches}, f)
+
+
+def distributed_checks(workdir, device, runs):
+    """``distributed_worker`` on DIST_RANKS ranks, started before
+    ``runs()`` (``dist_runs``, returned) and timing once it is done,
+    against this process: config 1's 3 steps in float64, every element
+    within TRAIN_STEP_ATOL's params (the float64 run that holds the first
+    conv, as in config 1's card-vs-CPU check; the float32 run is
+    ``dist_runs``' trained run); on the card the ranks' eager step beside
+    this process's, eager and graphed, over the same batch.  Returns
+    (runs' result, fields, failures); fields' ``dtw_launches``: each
+    worker's."""
+    import torch
+
+    result = os.path.join(workdir, "distributed", "worker.npz")
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         "distributed_worker({}, {}, {!r}, {!r}, {!r})".format(
+             rank, port, result, workdir, device)], cwd=HERE,
+        env=dist_env()) for rank in range(DIST_RANKS)]
+    try:
+        out = runs()
+        one = dist_steps(device, torch.float64)
+        open(result + ".go", "w").close()
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise AssertionError("distributed workers failed: {}".format(rcs))
+    fields, failed = {}, []
+    fields["dtw_launches"] = [rank_launches("{}.launches{}.json".format(
+        result, rank)) for rank in range(DIST_RANKS)]
+    with np.load(result) as z:
+        errs = {k: float(np.abs(z[k] - v).max()) for k, v in one.items()}
+    over_limit = sorted(k for k, e in errs.items()
+                        if e > TRAIN_STEP_ATOL["params"])
+    fields["float64"] = {"params_max_abs_err": max(errs.values()),
+                         "params_atol": TRAIN_STEP_ATOL["params"],
+                         "over_atol": over_limit}
+    if over_limit:
+        failed.append("3 float64 steps: {} past {}".format(
+            over_limit, TRAIN_STEP_ATOL["params"]))
+    if device == "cuda":
+        with open(result + ".json") as f:
+            times = {"ranks_eager": json.load(f)}
+        for mode, graphs in (("one_process_eager", False),
+                             ("one_process_graphed", True)):
+            _, runner = dist_timed_runner(workdir, device, graphs)
+            times[mode] = {
+                "train_step_ms": cuda_ms(runner.train, warmup=3,
+                                         reps=DIST_TIMED_STEPS),
+                "eval_step_ms": cuda_ms(runner.eval, warmup=3,
+                                        reps=DIST_TIMED_STEPS)}
+            del runner
+        fields["step_times"] = dict(times, batch=BATCH,
+                                    compute_dtype="bfloat16",
+                                    steps_timed=DIST_TIMED_STEPS)
+    return out, fields, failed
+
+
+def dist_params_held(got, want):
+    """Two checkpoints' float32 params held as config 1's card-vs-CPU
+    check holds them (``TRAIN_STEP_ATOL``): every element within 1e-5 but
+    those of ``BY_GRADIENT["config1"]`` (the first conv, whose gradient
+    sums cancel: float32's summation order moves it by ~1e-2 of its
+    largest element), which ``distributed_checks``' float64 run holds.
+    Returns the errors and the tensors over."""
+    errs = {k: float((got["params"][k] - want["params"][k]).abs().max())
+            for k in want["params"]}
+    held = {k: e for k, e in errs.items()
+            if not k.startswith(BY_GRADIENT["config1"])}
+    return {"params_max_abs_err": max(held.values()),
+            "params_atol": TRAIN_STEP_ATOL["params"],
+            "params_over": sorted(k for k, e in held.items()
+                                  if e > TRAIN_STEP_ATOL["params"]),
+            "not_held": {k: e for k, e in errs.items() if k not in held}}
+
+
+def phase_distributed(workdir, device="cuda"):
+    """Config 1 over DIST_RANKS ranks of ``cli.launch_distributed`` (gloo,
+    both ranks on the one card, full width, float32, fold 0 x 1 epoch of
+    the seeded cohort) against one process at ``--dp-devices 2``
+    (``dist_runs``): every rank's meters and patient rows equal; the
+    eval-only fold equal to the one process's (AUC exact, losses rtol
+    1e-5); the trained run (batch DIST_BATCH, padded to 16 and sharded 8
+    and 8) after DIST_STEPS steps: its params (rank 0's checkpoint) held
+    to the one process's as config 1's check holds them
+    (``dist_params_held``).  Around the runs ``distributed_checks``:
+    config 1's 3 float64 steps over 2 ranks against one process, and on
+    the card, after the runs, the ranks' eager step beside the one
+    process's.  Every rank process runs no DTW: each writes its launches
+    (from 0 at its start) when it ends, and the phase fails unless they
+    sum to 0.  One JSON line.  Returns that sum, which the caller adds to
+    this process's count for the path."""
+    from deepards_tpu_torch.cli.train import LAUNCH_COUNTS_FILE
+    from deepards_tpu_torch.train import checkpoint
+
+    cohort = config_cohort(workdir, config_conf("config1"))
+    t0 = time.perf_counter()
+    runs, steps, failed = distributed_checks(
+        workdir, device, lambda: dist_runs(workdir, device, cohort))
+    fields = {"card": nvidia_smi_line() if device == "cuda" else None,
+              "ranks": DIST_RANKS, "backend": "gloo",
+              "flags": CONFIG1_FLAGS + ["--only-fold", "0", "--epochs", "1",
+                                        "--compute-dtype", "float32"],
+              "steps": steps, "runs_and_checks_seconds":
+                  time.perf_counter() - t0}
+    for run in ("eval", "train"):
+        ranks = [dist_saved(d) for d in runs["{}_{}".format(
+            run, DIST_RANKS)][0]]
+        one = dist_saved(runs["{}_1".format(run)][0][0])
+        meters, rows = ranks[0]
+        for other_meters, other_rows in ranks[1:]:
+            if other_rows != rows or any(
+                    not np.array_equal(other_meters[k], meters[k])
+                    for k in meters) or other_meters.keys() != meters.keys():
+                failed.append("{}: the ranks' results differ".format(run))
+        losses = {k: float(np.max(np.abs(meters[k] - one[0][k]) / np.maximum(
+            np.abs(one[0][k]), 1e-12))) for k in meters if "loss" in k
+            and meters[k].shape == one[0][k].shape}
+        aucs = {k: (meters[k].tolist(), one[0][k].tolist())
+                for k in meters if "auc" in k}
+        fields[run] = {"loss_rel_err": losses, "auc": aucs,
+                       "patients": len(rows),
+                       "rows_equal": rows == one[1]}
+        if run == "eval":
+            if meters.keys() != one[0].keys() or any(
+                    a != b for a, b in aucs.values()) or rows != one[1]:
+                failed.append("eval-only: AUC or rows differ from one "
+                              "process: {}".format(aucs))
+            if any(e > 1e-5 for e in losses.values()):
+                failed.append("eval-only: losses past rtol 1e-5: {}".format(
+                    losses))
+    name = "dist-epoch1-fold0-step{}".format(DIST_STEPS)
+    got = checkpoint.restore(os.path.join(runs["train_2"][1], name))
+    want = checkpoint.restore(os.path.join(runs["train_1"][1], name))
+    held = dist_params_held(got, want)
+    fields["train"].update(batch=DIST_BATCH, padded_to=16, steps=DIST_STEPS,
+                           step=int(got["step"]), **held)
+    if held["params_over"] or got["step"] != DIST_STEPS:
+        failed.append("{} float32 steps against one process: {}, step "
+                      "{}".format(DIST_STEPS, held, got["step"]))
+    launches = {"{}_{}".format(run, DIST_RANKS): [
+        rank_launches(os.path.join(d, LAUNCH_COUNTS_FILE))
+        for d in runs["{}_{}".format(run, DIST_RANKS)][0]]
+        for run in ("eval", "train")}
+    launches["float64_workers"] = steps.pop("dtw_launches")
+    ranks_sum = sum(sum(v) for v in launches.values())
+    fields["rank_dtw_launches"] = dict(launches, total=ranks_sum)
+    if ranks_sum:
+        failed.append("the ranks launched the dtw kernel: {}".format(
+            launches))
+    fields["seconds"] = time.perf_counter() - t0
+    emit("distributed", **fields)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return ranks_sum
+
+
 def phase_experiments(workdir, device="cuda", breaths=800,
                       sweep_files=SWEEP_FILES):
     """The experiment-file tools and the reference's pickles, with PyYAML
@@ -6074,7 +6500,8 @@ def phase_experiments(workdir, device="cuda", breaths=800,
 PHASES = ("serve", "train", "graph_vs_eager", "config1_surface", "config2",
           "config3", "config4", "config4_unshuffled", "config7", "config5",
           "explain", "sequence", "two_d", "siamese", "backbones",
-          "analytics", "experiments", "dtw_similarity", "hetero")
+          "analytics", "experiments", "distributed", "dtw_similarity",
+          "hetero")
 PHASE_NEEDS = {"config1_surface": ("train",), "explain": ("train", "config5"),
                "analytics": ("train",)}
 
@@ -6259,8 +6686,15 @@ def run_phases(phases):
         if "experiments" in phases:
             by_path["experiments"] = counted("experiments", phase_experiments,
                                              work)
+        if "distributed" in phases:
+            # this process's count (its dp_devices 2 runs), from 0 just
+            # before the phase, and the sum of its rank processes' own
+            dtw_ops.launches = 0
+            ranks = timed("distributed", phase_distributed, work)
+            by_path["distributed"] = dtw_ops.launches + (ranks or 0)
     training = {name: n for name, n in by_path.items()
-                if name in CONFIG_FLAGS or name == "experiments"}
+                if name in CONFIG_FLAGS
+                or name in ("experiments", "distributed")}
     emit("train_path_kernel_launches", dtw=training)
     if any(training.values()):
         failures["training_paths"] = "a training path launched the dtw " \

@@ -101,28 +101,6 @@ def models_by_fold(network, base_network, dataset, pattern, n_folds, device):
     return out
 
 
-def draw_or_refuse(stages, device):
-    """Draw each (path, draw) stage on the CPU host where matplotlib is
-    present; else refuse each by name.  Returns the PNGs drawn."""
-    reason = None
-    if device.type != "cpu":
-        reason = "drawn on the CPU host only"
-    else:
-        try:
-            import matplotlib  # noqa: F401
-        except ImportError:
-            reason = "matplotlib is missing"
-    drawn = []
-    for path, draw in stages:
-        if reason:
-            print("PNG stage {} refused: {}".format(
-                os.path.basename(path), reason))
-        else:
-            drawn.append(draw(path))
-            print(path)
-    return drawn
-
-
 def save_columns(path, columns):
     np.savez(path, **{k.replace(" ", "_"): v for k, v in columns.items()})
     return path
@@ -139,6 +117,7 @@ def main(argv=None):
         MaxMinNormCam,
         UnNormalizedCam,
     )
+    from deepards_tpu_torch.utils.figures import draw_or_refuse
 
     device = resolve_device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)

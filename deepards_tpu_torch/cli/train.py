@@ -5,11 +5,22 @@ config keys, so experiment yml files and launch commands work unchanged,
 plus ``--device`` (the counterpart of ``--platform``), which defaults to
 the card.  Run: ``python -m deepards_tpu_torch.cli.train -co exp.yml
 --data-path <cohort dir> [--device cpu]``.
+
+With ``DEEPARDS_TORCH_LAUNCH_COUNTS=1`` in its environment a run writes
+its process's hand-written kernel launches (from 0 at its start) to
+``<results dir>/kernel_launches.json`` when it ends, so a caller can
+count the launches of ranks it did not start itself (``chip_smoke.py``'s
+``distributed`` phase reads each rank of ``cli.launch_distributed``).
 """
 import argparse
+import json
+import os
 
 from deepards_tpu_torch.config.config import Configuration
 
+
+LAUNCH_COUNTS_ENV = "DEEPARDS_TORCH_LAUNCH_COUNTS"
+LAUNCH_COUNTS_FILE = "kernel_launches.json"
 
 DATASET_TYPES = [
     "padded_breath_by_breath",
@@ -155,10 +166,10 @@ def build_parser():
     parser.add_argument("--post-hoc-downsampling", type=float)
     parser.add_argument("--fft-filtering-low", type=float)
     parser.add_argument("--fft-filtering-high", type=float)
-    # the JAX package's accelerator options; the port takes dp_devices -1
-    # or 1
     parser.add_argument("--dp-devices", type=int,
-                        help="devices on the data mesh axis (-1 = all)")
+                        help="shards of each batch on the data axis (-1 = "
+                        "the number of processes; one process runs any k "
+                        "itself, k processes one shard each)")
     parser.add_argument("--compute-dtype",
                         choices=["bfloat16", "float32"])
     parser.add_argument("--bn-scope", choices=["batch", "sequence"],
@@ -177,8 +188,8 @@ def build_parser():
                         "replays the fold's CUDA graph on the card")
     # multi-process / multi-host (usually set by cli.launch_distributed)
     parser.add_argument("--distributed-coordinator",
-                        help="coordinator address host:port (multi-process "
-                        "training is not ported yet)")
+                        help="host:port of rank 0 (torch.distributed over "
+                        "gloo)")
     parser.add_argument("--num-processes", type=int)
     parser.add_argument("--process-id", type=int)
     parser.add_argument("--platform", choices=["cpu", "tpu"],
@@ -197,6 +208,17 @@ def main(argv=None):
         parser.error("--platform tpu: the port runs on CUDA or the CPU")
     if args.platform == "cpu" and args.device is None:
         args.device = "cpu"
+    counting = os.environ.get(LAUNCH_COUNTS_ENV) == "1"
+    if counting:
+        from deepards_tpu_torch.ops import dtw
+
+        dtw.launches = 0
+    if args.distributed_coordinator:
+        # before any device work, as deepards_tpu/cli/train.py:186-194
+        from deepards_tpu_torch.parallel.mesh import initialize_distributed
+
+        initialize_distributed(args.distributed_coordinator,
+                               args.num_processes, args.process_id)
     conf = Configuration(args)
     # oversample alias quirk (reference: train_ards_detector.py:80-83)
     if "oversample" in conf.conf and conf.get("oversample") is not None:
@@ -212,6 +234,11 @@ def main(argv=None):
     print("Run start time: {}".format(trainer.start_time))
     trainer.train_and_test()
     print("Run start time: {}".format(trainer.start_time))
+    if counting:
+        results_dir = conf.get("results_dir") or "results"
+        os.makedirs(results_dir, exist_ok=True)
+        with open(os.path.join(results_dir, LAUNCH_COUNTS_FILE), "w") as f:
+            json.dump({"dtw": dtw.launches}, f)
     return trainer
 
 

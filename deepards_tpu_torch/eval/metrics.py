@@ -97,6 +97,27 @@ def roc_auc(y_true, scores):
     return float((rank_sum - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
 
 
+def roc_curve(y_true, scores):
+    """(fpr, tpr, thresholds) of scikit-learn's ``roc_curve`` with its
+    default ``drop_intermediate``: the points at each distinct score from
+    the highest down, collinear points dropped, (0, 0) at threshold inf
+    first."""
+    y_true = np.asarray(y_true) == 1
+    scores = np.asarray(scores, np.float64)
+    order = np.argsort(scores, kind="mergesort")[::-1]
+    scores, y_true = scores[order], y_true[order]
+    cut = np.r_[np.flatnonzero(np.diff(scores)), len(scores) - 1]
+    tps = np.cumsum(y_true, dtype=np.float64)[cut]
+    fps = 1 + cut - tps
+    thresholds = scores[cut]
+    if len(fps) > 2:
+        keep = np.flatnonzero(np.r_[True, np.logical_or(
+            np.diff(fps, 2), np.diff(tps, 2)), True])
+        fps, tps, thresholds = fps[keep], tps[keep], thresholds[keep]
+    tps, fps = np.r_[0, tps], np.r_[0, fps]
+    return fps / fps[-1], tps / tps[-1], np.r_[np.inf, thresholds]
+
+
 def r2_score(y_true, y_pred):
     """Coefficient of determination over all outputs together, in
     float64: 1 - SS_res / SS_tot, 0.0 when the targets do not vary

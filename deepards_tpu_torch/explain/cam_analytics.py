@@ -1,14 +1,18 @@
-"""GradCAM analytics without plots: cluster-count search, PCA, cluster
-prototypes, and the cams' spectral energy by band.
+"""GradCAM analytics: cluster-count search, PCA and its scatter by
+cluster count, cluster prototypes, and the cams' spectral energy by band.
 
 Counterpart of ``deepards_tpu/explain/cam_analytics.py`` (reference:
 deepards/gradcam.py:268-1062), on numpy alone: the silhouette is written
 out to scikit-learn's definition, and tables are dicts of columns (name ->
-list or array) under the JAX package's column names.
+list or array) under the JAX package's column names.  The scatter is
+drawn with matplotlib on the CPU host only (``utils/figures.py``).
 """
+import os
+
 import numpy as np
 
 from deepards_tpu_torch.data.pipeline import gather_pipeline
+from deepards_tpu_torch.utils import figures
 
 
 def _kmeans(x, k, iters=50, seed=0):
@@ -117,6 +121,42 @@ def pca_2d(X):
     Xc = X - X.mean(axis=0)
     _, _, vt = np.linalg.svd(Xc, full_matrices=False)
     return Xc @ vt[:2].T
+
+
+def pca_clusters(X, max_k=6, seed=0):
+    """(the 2-component PCA coordinates of ``X``, {k: KMeans labels} for
+    k = 2..max_k-1): the data behind ``viz_pca_clustering``."""
+    X = np.asarray(X, np.float64)
+    return pca_2d(X), {k: _kmeans_fit(X, k, seed)[0]
+                       for k in range(2, max_k)}
+
+
+def _draw_pca(path, coords, labels):
+    plt = figures.pyplot()
+    fig, axes = plt.subplots(1, len(labels), figsize=(3.2 * len(labels), 3))
+    for ax, (k, lab) in zip(np.atleast_1d(axes), labels.items()):
+        for i in range(k):
+            m = lab == i
+            ax.scatter(coords[m, 0], coords[m, 1], s=8)
+        ax.set_title("k={}".format(k))
+    fig.savefig(path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+def viz_pca_clustering(X, out_path=None, max_k=6, seed=0, device="cpu"):
+    """The cams' PCA scatter coloured by KMeans cluster, one panel a k
+    (``deepards_tpu/explain/cam_analytics.py:69-85``): with ``out_path``
+    an ``.npz`` of ``pca_clusters`` beside it and, where ``device`` is
+    the CPU host and matplotlib is present, the PNG.  Returns
+    ``out_path``."""
+    coords, labels = pca_clusters(X, max_k, seed)
+    if out_path:
+        np.savez(os.path.splitext(out_path)[0] + ".npz", coords=coords,
+                 **{"labels_k{}".format(k): v for k, v in labels.items()})
+        figures.draw_or_refuse([(out_path, lambda path: _draw_pca(
+            path, coords, labels))], device)
+    return out_path
 
 
 def cluster_prototypes(X, n_clust, dataset, sequence_map, seed=0):

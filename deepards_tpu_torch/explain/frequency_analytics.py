@@ -24,6 +24,7 @@ import torch
 
 from deepards_tpu_torch.data.pipeline import gather_pipeline, sosfilt
 from deepards_tpu_torch.explain.gradcam import upsample_cam
+from deepards_tpu_torch.utils import figures
 
 CAM_BATCH = 64  # sequences a device pass in the sweep
 
@@ -422,15 +423,6 @@ def one_two_d_comparison(cam_factory_1d, cam_factory_2d, dataset_1d,
 
 # ---- drawing: matplotlib, on the CPU host only ------------------------------
 
-def _pyplot():
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
-
-
 def _mean_iqr(ax, cols, x_col, y_col, hue_col, labels):
     """A mean line with an interquartile band per class."""
     for patho, label in labels.items():
@@ -449,7 +441,7 @@ def _mean_iqr(ax, cols, x_col, y_col, hue_col, labels):
 
 def draw_intensity(cols, out_path, xlabel, title=None, xlim=None):
     """Cam intensity by frequency (or position), by class, as a PNG."""
-    plt = _pyplot()
+    plt = figures.pyplot()
     fig, ax = plt.subplots(figsize=(16, 10))
     _mean_iqr(ax, cols, "Frequency", "Cam Intensity", "Patho",
               {0: "Non-ARDS", 1: "ARDS"})
@@ -466,7 +458,7 @@ def draw_intensity(cols, out_path, xlabel, title=None, xlim=None):
 
 def draw_bands(cols, freqs, out_path):
     """The inputs' first channel by frequency band and class, boxes."""
-    plt = _pyplot()
+    plt = figures.pyplot()
     fig, ax = plt.subplots(figsize=(16, 10))
     starts = sorted(np.unique(cols["freq"]).tolist())
     for off, patho in enumerate((0, 1)):
@@ -487,7 +479,7 @@ def draw_bands(cols, freqs, out_path):
 def draw_prototypes(protos, hz_low, hz_high, out_path):
     """The mean cams over the filtered prototypes, and the unfiltered
     ones, by class."""
-    plt = _pyplot()
+    plt = figures.pyplot()
     fig, axes = plt.subplots(2, 2, figsize=(20, 10))
     for col, patho in enumerate((1, 0)):
         if (patho, "mean_cam") not in protos:
@@ -512,7 +504,7 @@ def draw_prototypes(protos, hz_low, hz_high, out_path):
 
 def draw_signal(signal, out_path):
     """A filtered breath, bare, as a PNG."""
-    plt = _pyplot()
+    plt = figures.pyplot()
     fig, ax = plt.subplots(figsize=(4, 4))
     ax.plot(signal, lw=1.35, label="flow")
     ax.grid(axis="y")

@@ -4,10 +4,12 @@ Counterpart of ``deepards_tpu/explain/patient_gradcam.py`` (reference:
 deepards/patient_gradcam.py:30-437): for each patient of a dataset's
 current indices, cams over median or average breaths, sampled sequences,
 full reads, per-hour samples, random stratified panes, or DTW clustering
-of cam-active spans, saved under ``<results_dir>/<op>/<patho>/``.  Nothing
-is drawn: each op writes the ``.npz`` dumps the JAX package writes where
-matplotlib is missing, ``cam_by_hour`` its payloads with ``pickle``, and
-``rand_sample`` its ``.txt`` records.
+of cam-active spans, saved under ``<results_dir>/<op>/<patho>/``.  Each op
+writes the ``.npz`` dumps the JAX package writes where matplotlib is
+missing (``cam_by_hour`` its payloads with ``pickle``, ``rand_sample`` its
+``.txt`` records too) and, on the CPU host with matplotlib, the PNGs the
+JAX package draws in their place (``utils/figures.py``; on the card each
+PNG stage is refused by name).
 
 Patients run in order of first appearance in the truth and their windows
 in its order, so a seeded generator picks the windows the JAX package
@@ -17,6 +19,7 @@ chunk's pairs on the device and scores them with ``ops.dtw.dtw_batch``
 (the CUDA kernel on a card), reading the distances back once.
 """
 import contextlib
+import functools
 import os
 import pickle
 import time
@@ -29,8 +32,78 @@ from deepards_tpu_torch.data.pipeline import gather_pipeline
 from deepards_tpu_torch.dtw.kmedoids import KMedoids
 from deepards_tpu_torch.explain.gradcam import MaxMinNormCam, upsample_cam
 from deepards_tpu_torch.ops.dtw import dtw_batch
+from deepards_tpu_torch.utils import figures
 
 PATHO_NAME = {0: "non_ards", 1: "ards"}
+
+
+def draw_cam(path, breath, cam224, title):
+    """A breath with its cam behind it (patient_gradcam.py:89-104)."""
+    plt = figures.pyplot()
+    fig, ax = plt.subplots(figsize=(8, 3))
+    t = np.arange(len(breath)) * 0.02
+    ax.plot(t, breath, "k", lw=1)
+    ax.imshow(cam224[None, :], aspect="auto", cmap="jet", alpha=0.4,
+              extent=[t[0], t[-1], min(breath), max(breath)])
+    ax.set_xlabel("time (s)")
+    ax.set_ylabel("flow (l/min)")
+    ax.set_title(title)
+    fig.savefig(path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+def draw_pane(path, breaths, cams, patho):
+    """A square grid of breaths coloured by their upsampled cams
+    (patient_gradcam.py:285-306)."""
+    plt = figures.pyplot()
+    side = int(np.sqrt(len(breaths)))
+    fig, axes = plt.subplots(side, side, figsize=(20, 10))
+    for k, ax in enumerate(axes.ravel()):
+        br = breaths[k, 0]
+        t = np.arange(len(br))
+        ax.scatter(t, br, c=upsample_cam(cams[k]), vmin=0, vmax=255, s=4)
+        ax.plot(t, br, lw=0.5)
+        ax.tick_params(axis="x", which="both", bottom=False, top=False,
+                       labelbottom=False)
+        ax.tick_params(axis="y", labelsize="x-small")
+    title = {"random": "Random", "non_ards": "Non-ARDS",
+             "ards": "ARDS"}[patho]
+    fig.suptitle("{} Grad-Cam".format(title))
+    fig.subplots_adjust(right=0.8)
+    cbar_ax = fig.add_axes((0.85, 0.15, 0.025, 0.7))
+    sm = plt.cm.ScalarMappable(norm=plt.Normalize(vmin=0, vmax=255))
+    fig.colorbar(sm, cax=cbar_ax).set_label("Intensity")
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
+
+
+def draw_elbow(path, ks, distortions, title):
+    """Mean distance to the medoid by cluster count
+    (patient_gradcam.py:438-448)."""
+    plt = figures.pyplot()
+    fig, ax = plt.subplots()
+    ax.plot(ks, distortions)
+    ax.set_xlabel("n clusters")
+    ax.set_ylabel("mean distance to medoid")
+    ax.set_title(title)
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
+
+
+def draw_grads(path, ards, other):
+    """Histograms of the cam gradients' norms by predicted class
+    (patient_gradcam.py:477-485)."""
+    plt = figures.pyplot()
+    fig, ax = plt.subplots()
+    ax.hist(ards, bins=20, label="ARDS", alpha=0.5)
+    ax.hist(other, bins=20, label="Other", alpha=0.5)
+    ax.legend()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
 
 
 class StageTimer:
@@ -127,8 +200,12 @@ class PatientGradCam:
         if subdir:
             out_dir = os.path.join(out_dir, subdir)
         os.makedirs(out_dir, exist_ok=True)
-        np.savez(os.path.join(out_dir, "{}{}.npz".format(patient_id, suffix)),
-                 breath=breath, cam=upsample_cam(cam))
+        base = os.path.join(out_dir, "{}{}".format(patient_id, suffix))
+        cam224 = upsample_cam(cam)
+        np.savez(base + ".npz", breath=breath, cam=cam224)
+        figures.draw_or_refuse([(base + ".png", lambda path: draw_cam(
+            path, breath, cam224, "{} {}".format(patient_id, op)))],
+            self.cam.device)
 
     def _gather(self, idx):
         """Gathered rows with the fold's transforms applied."""
@@ -282,6 +359,8 @@ class PatientGradCam:
         base = os.path.join(dirname, "{}-sample-{}".format(patho,
                                                            uuid.uuid4()))
         np.savez(base + ".npz", breaths=breaths, cams=cams)
+        figures.draw_or_refuse([(base + ".png", lambda path: draw_pane(
+            path, breaths, cams, patho))], self.cam.device)
         with open(base + ".txt", "w") as record:
             record.write("n, patho, sequence_idx, breath_idx\n")
             for k, (abs_idx, br_idx, target) in enumerate(picks):
@@ -402,6 +481,13 @@ class PatientGradCam:
                 np.savez(os.path.join(dirname, "elbow.npz"),
                          distortions=np.asarray(distortions),
                          clusters=np.asarray(ks), n_sequences=n)
+                if distortions:
+                    figures.draw_or_refuse([(
+                        os.path.join(dirname, "elbow.png"),
+                        functools.partial(
+                            draw_elbow, ks=ks, distortions=distortions,
+                            title="patient: {} target: {}".format(
+                                pt, self.target)))], self.cam.device)
                 results[(str(pt), int(target))] = {
                     "n_sequences": n,
                     "clusters": ks,
@@ -413,9 +499,10 @@ class PatientGradCam:
                 }
         return results
 
-    def plot_grads(self):
+    def plot_grads(self, out_path=None):
         """Per-call cam gradient norms split by predicted class
-        (reference: patient_gradcam.py:365-375): (ards, other).  Needs a
+        (reference: patient_gradcam.py:365-375): (ards, other), and with
+        ``out_path`` their histograms as a PNG on the CPU host.  Needs a
         cam built with ``record_grads=True`` and an op run first."""
         grads = getattr(self.cam, "grads", [])
         preds = getattr(self.cam, "preds", [])
@@ -428,7 +515,11 @@ class PatientGradCam:
         outputs = np.array([
             int(np.asarray(p).reshape(-1, p.shape[-1])[0].argmax())
             for p in preds])
-        return norms[outputs == 1], norms[outputs == 0]
+        ards, other = norms[outputs == 1], norms[outputs == 0]
+        if out_path:
+            figures.draw_or_refuse([(out_path, lambda path: draw_grads(
+                path, ards, other))], self.cam.device)
+        return ards, other
 
     def do_op(self, op, **kwargs):
         """The reference's --ops surface

@@ -1,13 +1,15 @@
-"""Prototype analysis for ProtoPNet, without plots.
+"""Prototype analysis for ProtoPNet.
 
 Counterpart of ``deepards_tpu/explain/prototypes.py`` (reference:
 deepards/models/protopnet1d/ppnet_push.py:21-695 PrototypeVisualizer;
 protopnet_analysis.py; protopnet_shap.py): each pushed prototype's
 receptive field on its source breath, per-window prototype similarities,
 a probe of the last layer over them with its top-k prototypes, and
-closed-form SHAP values of the linear head.  Nothing is drawn: the
-visualizer writes the ``.npz`` dumps the JAX package writes where
-matplotlib is missing, and the pane its ``.txt`` record.
+closed-form SHAP values of the linear head.  The visualizer writes the
+``.npz`` dumps the JAX package writes where matplotlib is missing, and
+the pane its ``.txt`` record; on the CPU host with matplotlib each also
+gets the PNG the JAX package draws (``utils/figures.py``; on the card
+each PNG stage is refused by name).
 
 The model runs on its device, dropout off, over chunks of ``batch_size``
 windows of the dataset's current indices in order (the last chunk short,
@@ -23,6 +25,7 @@ import torch
 
 from deepards_tpu_torch.data.pipeline import gather_pipeline
 from deepards_tpu_torch.models.protopnet1d import compute_rf_boundaries
+from deepards_tpu_torch.utils import figures
 
 
 def _device(model):
@@ -44,6 +47,38 @@ def _distance_maps(model, window):
     x = torch.as_tensor(np.asarray(window, np.float32)[None],
                         device=_device(model))
     return model.push_forward(x, True)[1][0].cpu().numpy()
+
+
+def draw_prototype(path, breath, lo, hi, title):
+    """A breath with a prototype's receptive field shaded
+    (prototypes.py:74-85)."""
+    plt = figures.pyplot()
+    fig, ax = plt.subplots(figsize=(8, 3))
+    t = np.arange(len(breath)) * 0.02
+    ax.plot(t, breath, "k", lw=1)
+    ax.axvspan(lo * 0.02, hi * 0.02, color="orange", alpha=0.4)
+    ax.set_title(title)
+    ax.set_xlabel("time (s)")
+    fig.savefig(path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+def draw_proto_pane(path, breaths, spans):
+    """A 4x4 grid of breaths, each with its prototype's receptive field
+    shaded (prototypes.py:262-270, 291-313)."""
+    plt = figures.pyplot()
+    fig, axes = plt.subplots(4, 4, figsize=(20, 10))
+    for axis, breath, (lo, hi) in zip(axes.ravel(), breaths, spans):
+        axis.plot(np.arange(len(breath)), breath, "k", lw=0.8)
+        axis.axvspan(lo, hi, color="orange", alpha=0.4)
+        axis.tick_params(axis="x", which="both", bottom=False, top=False,
+                         labelbottom=False)
+        axis.tick_params(axis="y", labelsize="x-small")
+    fig.suptitle("Random Prototype Viz")
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
 
 
 def last_layer_kernel(model):
@@ -68,8 +103,8 @@ class PrototypeVisualizer:
     def viz_prototypes(self, push_info, epoch_num=0):
         """One record a pushed prototype (``push_info`` entries hold
         window_index, flat_pos over the window's S x L'' positions and
-        distance; None where no window matched) and an ``.npz`` of its
-        breath and span."""
+        distance; None where no window matched), an ``.npz`` of its
+        breath and span and, on the CPU host, its PNG."""
         os.makedirs(self.results_dir, exist_ok=True)
         outputs = []
         s = self.dataset.cache.data.shape[1]
@@ -88,9 +123,13 @@ class PrototypeVisualizer:
                 "sub_batch": int(sub), "rf_lo": lo, "rf_hi": hi,
                 "distance": info.get("distance"),
             })
-            name = "{}-epoch{}-p{}".format(self.fname_prefix, epoch_num, j)
-            np.savez(os.path.join(self.results_dir, name + ".npz"),
-                     breath=breath, rf=(lo, hi))
+            base = os.path.join(self.results_dir, "{}-epoch{}-p{}".format(
+                self.fname_prefix, epoch_num, j))
+            np.savez(base + ".npz", breath=breath, rf=(lo, hi))
+            title = "prototype {} (window {} sub {})".format(j, widx, sub)
+            figures.draw_or_refuse([(base + ".png", lambda path: (
+                draw_prototype(path, breath, lo, hi, title)))],
+                _device(self.model))
         return outputs
 
 
@@ -231,7 +270,8 @@ class ProtoPNetAnalysis:
 
     def make_random_sequence_pane(self, dirname, rng=None, topk=40):
         """16 random picks, 8 of each class, correctly predicted where
-        possible, recorded in ``<dirname>/sample-<uuid4>.txt``
+        possible, recorded in ``<dirname>/sample-<uuid4>.txt`` and, on the
+        CPU host, drawn with their receptive fields in its ``.png``
         (reference: protopnet_analysis.py:148-173).  Returns the path
         without its extension."""
         rng = rng or np.random.default_rng(0)
@@ -239,14 +279,19 @@ class ProtoPNetAnalysis:
         items = 16
         pathos = ["ards"] * (items // 2) + ["non_ards"] * (items // 2)
         rng.shuffle(pathos)
-        record = []
+        record, breaths, spans = [], [], []
         for i, p in enumerate(pathos):
             seq_idx, breath_n, proto_n = \
                 self.plot_random_proto_from_linear_with_topk(p, p, topk,
                                                              rng=rng)
             record.append([str(i + 1), p, str(seq_idx), str(breath_n),
                            str(proto_n)])
+            window = self.test_pipe(self.test_ds.gather([seq_idx])["data"])[0]
+            breaths.append(window[breath_n, 0])
+            spans.append(self._rf_span_for(window, breath_n, proto_n))
         base = os.path.join(dirname, "sample-{}".format(uuid.uuid4()))
+        figures.draw_or_refuse([(base + ".png", lambda path: draw_proto_pane(
+            path, breaths, spans))], _device(self.model))
         with open(base + ".txt", "w") as fh:
             fh.write("n, patho, gt_idx, breath_n, proto_n\n")
             for line in record:

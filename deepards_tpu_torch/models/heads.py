@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from deepards_tpu_torch.models.layers import (
+    SampleGroups,
     SharedDraws,
     dense_init,
     promoted_linear,
@@ -28,7 +29,7 @@ def _window_features(breath_block, x, bn_scope, deterministic, generator,
     separate calls from one generator state would (``SharedDraws``).
     """
     b, s, c, length = x.shape
-    groups = b if bn_scope == "sequence" else copies
+    groups = SampleGroups(b) if bn_scope == "sequence" else copies
     if copies > 1 and generator is not None:
         generator = SharedDraws(generator, copies)
     feats = breath_block(

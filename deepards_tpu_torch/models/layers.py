@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepards_tpu_torch.parallel import mesh
+
 # Stack of row masks scoped by ``bn_row_mask``.  A ContextVar keeps scopes
 # opened in different threads (the server's handler threads) apart.
 _BN_ROW_MASK = contextvars.ContextVar("bn_row_mask", default=())
@@ -113,13 +115,23 @@ class SharedDraws(NamedTuple):
 def dropout(h, rate, generator):
     """Inverted dropout drawn from ``generator`` (which must live on
     ``h``'s device, or be ``SharedDraws`` of one): keep with probability
-    1-rate, scale kept values."""
+    1-rate, scale kept values.  Inside ``mesh.sharded_rows`` the rows are
+    one rank's shard: the masks of every rank's rows are drawn and this
+    rank's kept."""
     copies = 1
     if isinstance(generator, SharedDraws):
         generator, copies = generator
     keep_prob = 1.0 - rate
-    shape = (h.shape[0] // copies,) + tuple(h.shape[1:])
-    keep = torch.rand(shape, generator=generator, device=h.device) < keep_prob
+    rows = h.shape[0] // copies
+    axis = mesh.current_sharding()
+    if axis is None:
+        shape = (rows,) + tuple(h.shape[1:])
+        keep = torch.rand(shape, generator=generator, device=h.device)
+    else:
+        shape = (rows * axis.world,) + tuple(h.shape[1:])
+        keep = torch.rand(shape, generator=generator, device=h.device)[
+            axis.local(shape[0])]
+    keep = keep < keep_prob
     if copies > 1:
         keep = keep.repeat((copies,) + (1,) * (h.ndim - 1))
     return torch.where(keep, h / keep_prob, torch.zeros_like(h))
@@ -134,15 +146,26 @@ def promoted_linear(x, linear):
     return F.linear(x.to(dtype), linear.weight.to(dtype), bias)
 
 
+class SampleGroups(int):
+    """A ``BatchStatNorm`` group count whose groups are whole samples
+    (``bn_scope='sequence'``), which keep their statistics to themselves
+    on every rank."""
+
+
 class BatchStatNorm(nn.Module):
     """BatchNorm over (N, C, L), or (N, C, H, W) for the 2D networks, that
     always uses current-batch statistics: per channel over N and the
     spatial axes, a row mask over the N rows.
 
     ``forward(x, groups)`` splits the N rows into ``groups`` equal
-    consecutive groups with statistics of their own: ``groups=B`` over
-    B*S window rows gives each sample's S windows their own statistics
-    (``bn_scope='sequence'``) in one grouped reduction.
+    consecutive groups with statistics of their own: ``SampleGroups(B)``
+    over B*S window rows gives each sample's S windows their own
+    statistics (``bn_scope='sequence'``) in one grouped reduction.  Inside
+    ``mesh.sharded_rows`` the rows are one rank's shard of the batch, and
+    each group's sums and count (then its squared deviations) are summed
+    over the ranks before the mean (then the variance), but for
+    ``SampleGroups``: a sample never crosses a rank, so its statistics
+    stay local, whatever the count of samples the rank holds.
     """
 
     def __init__(self, num_features, eps=1e-5):
@@ -161,14 +184,27 @@ class BatchStatNorm(nn.Module):
         xf = x.to(stat_dtype).reshape(groups, rows, c, length)
         axes = (1, 3)
         row_mask = current_bn_row_mask(rows)
+        # rows that are one rank's shard: statistics of every rank's rows
+        sharded = (mesh.current_sharding() is not None
+                   and not isinstance(groups, SampleGroups))
+        if row_mask is None and sharded:
+            row_mask = torch.ones(rows)
         if row_mask is not None:
             # mask-weighted statistics: pad rows contribute nothing
             m = row_mask.to(device=x.device, dtype=stat_dtype)
             m = m.reshape(1, rows, 1, 1)
-            count = torch.clamp(m.sum(), min=1.0) * float(length)
-            mean = (xf * m).sum(dim=axes, keepdim=True) / count
-            var = ((xf - mean).square() * m).sum(
-                dim=axes, keepdim=True) / count
+            total = (xf * m).sum(dim=axes, keepdim=True)
+            m_sum = m.sum()
+            if sharded:
+                both = mesh.global_sum(torch.cat([total.reshape(-1),
+                                                  m_sum.reshape(1)]))
+                total, m_sum = both[:-1].reshape(total.shape), both[-1]
+            count = torch.clamp(m_sum, min=1.0) * float(length)
+            mean = total / count
+            square = ((xf - mean).square() * m).sum(dim=axes, keepdim=True)
+            if sharded:
+                square = mesh.global_sum(square)
+            var = square / count
         else:
             var, mean = torch.var_mean(
                 xf, dim=axes, correction=0, keepdim=True)

@@ -93,6 +93,7 @@ def make_detector_steps(gamma=2.0, alpha=0.25, compute_dtype=None):
 
 class DetectorTrainer(Trainer):
     target_shape = (ROWS, 2)  # per-row one-hot labels
+    shards_batches = False  # its batches run whole on every rank
 
     def run_fold(self, fold_num, train_dataset, test_dataset):
         conf = self.conf

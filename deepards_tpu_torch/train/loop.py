@@ -53,6 +53,7 @@ from deepards_tpu_torch.models.registry import (
     metadata_features_for,
     two_dim_base_network,
 )
+from deepards_tpu_torch.parallel import mesh
 from deepards_tpu_torch.train import checkpoint
 from deepards_tpu_torch.train import losses as loss_lib
 from deepards_tpu_torch.train.loader import EpochLoader, PrefetchLoader
@@ -63,41 +64,45 @@ from deepards_tpu_torch.train.steps import (
     make_train_step,
 )
 
-# options of the JAX trainer not ported yet: setting one raises
-_UNPORTED_OPTIONS = (
-    "plot_untiled_disease_evol", "plot_tiled_disease_evol",
-    "plot_dtw_with_disease", "plot_pt_dtw_by_minute",
-    "distributed_coordinator",
-)
+# the options that draw the test predictions after the folds
+PLOT_OPTIONS = ("plot_untiled_disease_evol", "plot_tiled_disease_evol",
+                "plot_dtw_with_disease")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": None, None: None}
 
 
-def _check_dtw_preprocessing(spec):
-    """Refuse ``perform_dtw_preprocessing`` where the JAX package's run
-    fails: the autoencoder, the regressor, the siamese and detector
-    trainers save no predictions by hour (``pred_to_hour_frame`` is never
-    set); a 2D network's test split, ``ImgARDSDataset``, has no window
-    cache; and a per-breath head of the standard trainer repeats each
-    window's index S times, which ``process_pred_to_hour_for_dtw``
-    cannot expand (``deepards_tpu/eval/plots.py:24-37``)."""
+def _check_plotting(spec, conf):
+    """Refuse ``perform_dtw_preprocessing`` and the plot options where the
+    JAX package's run fails: the autoencoder, the regressor, the siamese
+    and detector trainers save no predictions by hour
+    (``pred_to_hour_frame`` is never set); and for the DTW frames
+    (``perform_dtw_preprocessing``, ``plot_dtw_with_disease``), a 2D
+    network's test split, ``ImgARDSDataset``, has no window cache, and a
+    per-breath head of the standard trainer repeats each window's index S
+    times, which ``process_pred_to_hour_for_dtw`` cannot expand
+    (``deepards_tpu/eval/plots.py:24-37``)."""
+    dtw = [k for k in ("perform_dtw_preprocessing", "plot_dtw_with_disease")
+           if conf.get(k)]
+    asked = dtw + [k for k in PLOT_OPTIONS[:2] if conf.get(k)]
+    if not asked:
+        return
     if spec.kind == "autoencoder":
-        raise NotImplementedError(
-            "perform_dtw_preprocessing: the autoencoder has no predictions "
-            "by hour")
-    if spec.kind != "classifier":
+        reason = "the autoencoder has no predictions by hour"
+    elif spec.kind != "classifier":
         reason = "the {} trainer saves no predictions by hour".format(
             spec.kind)
-    elif spec.two_dim:
+    elif dtw and spec.two_dim:
+        asked = dtw
         reason = "a 2D network's test split has no window cache"
-    elif spec.expand_obs_idx and not spec.super_batch:
+    elif dtw and spec.expand_obs_idx and not spec.super_batch:
+        asked = dtw
         reason = ("a per-breath head repeats each window's prediction S "
                   "times")
     else:
         return
     raise NotImplementedError(
-        "perform_dtw_preprocessing with {}: {}, and the JAX package's run "
-        "fails there".format(spec.name, reason))
+        "{} with {}: {}, and the JAX package's run fails there".format(
+            ", ".join(asked), spec.name, reason))
 
 
 def make_trainer(conf, **kwargs):
@@ -273,9 +278,16 @@ def _chunks(iterable, size):
 
 class Trainer:
     """Config-driven experiment runner (the train_and_test surface).  On
-    a CUDA device its steps are CUDA-graph replays."""
+    a CUDA device its steps are CUDA-graph replays, unless its batches
+    are sharded over processes (``dp_devices``, ``parallel/mesh.py``):
+    then they run eagerly, each rank over its rows."""
 
     _DEVICE_CACHE_MAX_BYTES = 2 << 30  # larger caches take the host epoch
+    # its batches are padded for the data axis and, across processes,
+    # sharded (the JAX package's standard and ProtoPNet trainers); the
+    # other trainers run their whole batches on every rank, as the JAX
+    # package replicates them
+    shards_batches = True
     # one sample's target in the runner's buffer, where it is not the
     # dataset's (target width,)
     target_shape = None
@@ -283,35 +295,39 @@ class Trainer:
     def __init__(self, conf, device=None, verbose=True):
         self.conf = conf
         self.verbose = verbose
-        unported = [k for k in _UNPORTED_OPTIONS if conf.get(k)]
-        if unported:
-            raise NotImplementedError(
-                "options not ported to deepards_tpu_torch yet: "
-                + ", ".join(unported))
         if conf.get("load_siamese"):
             raise ValueError(
                 "--load-siamese is read by nothing, here or in the JAX "
                 "package: --load-base-network splices a siamese "
                 "checkpoint's breath_block into siamese_pretrained")
-        if conf.get("dp_devices", -1) not in (-1, 1, None):
+        if conf.get("plot_pt_dtw_by_minute"):
+            raise ValueError(
+                "--plot-pt-dtw-by-minute is read by nothing, here or in "
+                "the JAX package: --plot-dtw-with-disease draws the DTW "
+                "over each patient's hours")
+        if (conf.get("model_devices") or 1) > 1:
             raise NotImplementedError(
-                "dp_devices={}: the port trains on one device".format(
-                    conf.get("dp_devices")))
+                "model_devices={}: the port splits no parameter over a "
+                "model axis".format(conf.get("model_devices")))
+        axis = mesh.make_data_axis(conf.get("dp_devices", -1) or -1)
+        self.axis = axis if self.shards_batches else mesh.DataAxis()
         self.spec = get_network_spec(conf.network)
-        if conf.get("perform_dtw_preprocessing"):
-            _check_dtw_preprocessing(self.spec)
+        _check_plotting(self.spec, conf)
         self.device = resolve_device(
             device if device is not None else conf.get("device"))
         self.n_kfolds = (
             1 if conf.get("bootstrap") else (conf.get("kfolds") or 1)
         )
-        self.start_time = str(int(time.time()))
+        # every rank of a run names its results as rank 0 does
+        self.start_time = mesh.broadcast_object(str(int(time.time())))
         self.results = DeepARDSResults(
             self.start_time,
             conf.get("experiment_name"),
             results_dir=conf.get("results_dir") or "results",
             conf=dict(conf.conf),
         )
+        self.results.uuid_name = mesh.broadcast_object(
+            self.results.uuid_name)
         self.seed = conf.get("seed", 42) or 42
         self.host_rng = np.random.default_rng(self.seed)
         self.compute_dtype = _DTYPES[conf.get("compute_dtype", "bfloat16")]
@@ -569,25 +585,46 @@ class Trainer:
         return self.results
 
     def perform_plotting(self, test_dataset):
-        """``perform_dtw_preprocessing``: once the folds are done, each
-        patient's rolling DTW frame of the last predictions by hour on the
-        last fold's test split, cached under ``dtw_cache`` (reference:
-        train_ards_detector.py:496-511), kept as ``dtw_frames``
-        ({patient: ``DTWFrame``}).  The plot flags are refused."""
-        if not self.conf.get("perform_dtw_preprocessing"):
+        """After the folds (reference: train_ards_detector.py:496-511):
+        with ``perform_dtw_preprocessing`` or ``plot_dtw_with_disease``,
+        each patient's rolling DTW frame of the last predictions by hour
+        on the last fold's test split, cached under ``dtw_cache`` and kept
+        as ``dtw_frames`` ({patient: ``DTWFrame``}); then with
+        ``plot_tiled_disease_evol`` the tiled TP/TN/FP/FN grids under
+        ``prediction_plots/tiled_*``, else with any plot option one
+        hourly plot a patient under ``prediction_plots`` (the DTW over it
+        with ``plot_dtw_with_disease``), each an ``.npz`` and, on the CPU
+        host with matplotlib, a PNG.  In a run over processes rank 0
+        writes them."""
+        conf = self.conf
+        wants_dtw = (conf.get("plot_dtw_with_disease")
+                     or conf.get("perform_dtw_preprocessing"))
+        wants_plots = any(conf.get(k) for k in PLOT_OPTIONS)
+        if not (wants_dtw or wants_plots) or mesh.process_index():
             return
         from deepards_tpu_torch.eval import plots
 
-        self.dtw_frames = plots.perform_dtw_preprocessing(
-            self.results, test_dataset, "dtw_cache", device=self.device)
+        dtw_frames = None
+        if wants_dtw:
+            self.dtw_frames = dtw_frames = plots.perform_dtw_preprocessing(
+                self.results, test_dataset, "dtw_cache", device=self.device)
+        if conf.get("plot_tiled_disease_evol"):
+            plots.plot_tiled_disease_evol(
+                self.results, "prediction_plots/tiled.png",
+                device=self.device)
+        elif wants_plots:
+            plots.perform_hourly_patient_plot(
+                self.results, dtw_frames=dtw_frames, device=self.device)
 
     def make_runner(self, state, dataset, train_step, eval_step,
                     graphed=None):
-        """The fold's ``StepRunner`` for batches of ``dataset``'s windows
-        or images, its target buffer of ``target_shape`` where that is
-        set: its graphs are captured here, after the fold's state is final
-        (on the card, unless ``graphed`` is False)."""
-        batch_size = self.conf.get("batch_size", 16)
+        """The fold's ``StepRunner`` for this process's rows of the padded
+        batches (``batch_rows``) of ``dataset``'s windows or images, its
+        target buffer of ``target_shape`` where that is set: its graphs
+        are captured here, after the fold's state is final (on the card,
+        unless ``graphed`` is False or the batches are sharded over
+        processes)."""
+        batch_size = self.batch_rows()[1]
         meta_shape = None
         if self.meta_features:
             meta_shape = (batch_size,) + dataset.cache.meta.shape[1:]
@@ -597,11 +634,19 @@ class Trainer:
             extra = {"target": torch.zeros(
                 (batch_size,) + self.target_shape, device=self.device)}
         if graphed is None:
-            graphed = self.device.type == "cuda"
+            graphed = self.device.type == "cuda" and not self.axis.sharded
         return StepRunner(state, train_step, eval_step,
                           (batch_size,) + data_shape,
                           target_width=target_width, meta_shape=meta_shape,
-                          graphed=graphed, extra_inputs=extra)
+                          graphed=graphed, extra_inputs=extra,
+                          axis=self.axis)
+
+    def batch_rows(self):
+        """(the padded batch: ``batch_size`` up to a multiple of the data
+        axis, the number of its rows this process holds)."""
+        target = self.axis.pad_target(self.conf.get("batch_size", 16))
+        rows = self.axis.local(target)
+        return target, rows.stop - rows.start
 
     def step_options(self, dataset):
         """``make_train_step``'s options for this network over the train
@@ -626,6 +671,7 @@ class Trainer:
             self.restore_state(state, conf.load_checkpoint)
         if conf.get("load_base_network"):
             self.load_base_network(state, conf.load_base_network)
+        mesh.replicate_tree(state.model.parameters())
         return state
 
     def sample_draws(self, dataset):
@@ -861,13 +907,16 @@ class Trainer:
 
     def _device_steps(self, runner, dataset, ids, masks, train):
         """One step per row of ``ids`` over the device cache, each batch
-        gathered into the runner's buffers on the device.  Returns the
-        (steps,) losses (``(steps,) + shape`` of what a train step
-        returns) and, for eval, the (steps, B, ...) outputs, on the
-        device."""
+        (this process's columns of ``ids``) gathered into the runner's
+        buffers on the device.  Returns the (steps,) losses (``(steps,) +
+        shape`` of what a train step returns) and, for eval, the (steps,
+        B, ...) outputs of this process's rows, on the device."""
         dev = self._get_device_cache(dataset)
-        ids = torch.from_numpy(ids).to(self.device)
-        masks = torch.from_numpy(masks).to(self.device)
+        rows = self.axis.local(ids.shape[1])
+        ids = torch.from_numpy(np.ascontiguousarray(ids[:, rows])).to(
+            self.device)
+        masks = torch.from_numpy(np.ascontiguousarray(masks[:, rows])).to(
+            self.device)
         steps = ids.shape[0]
         losses = outs = None
         inputs = runner.inputs
@@ -909,7 +958,7 @@ class Trainer:
         idx = np.asarray(dataset.current_indices())
         perm = idx if conf.get("unshuffled") else self.host_rng.permutation(
             idx)
-        ids, masks = _epoch_order(perm, conf.get("batch_size", 16))
+        ids, masks = _epoch_order(perm, self.batch_rows()[0])
         if self.verbose:
             print("train instances: {} (device-cache epoch)".format(
                 len(ids)))
@@ -922,16 +971,23 @@ class Trainer:
                 "loss_epoch_{}".format(epoch_num), fold_num, float(loss))
             self.results.update_loss(fold_num, float(loss))
 
-    def device_batch(self, batch, batch_size):
-        """Pad a gathered batch to ``batch_size`` and copy what the steps
-        read to the device: {data, target, mask[, meta]}."""
+    def step_arrays(self, batch, batch_size):
+        """What the steps read of a gathered batch, padded to
+        ``batch_size``: {data, target, mask[, meta]}, of which a process
+        of a sharded run keeps its rows (``mesh.shard_batch``)."""
         batch, mask = _pad_batch(batch, batch_size)
         out = {"data": batch["data"], "target": batch["target"],
                "mask": mask}
         if self.meta_features:
             out["meta"] = batch["metadata"]
+        if self.axis.sharded:
+            out = mesh.shard_batch(self.axis, out)[0]
+        return out
+
+    def device_batch(self, batch, batch_size):
+        """``step_arrays`` on the device."""
         return {k: torch.from_numpy(v).to(self.device)
-                for k, v in out.items()}
+                for k, v in self.step_arrays(batch, batch_size).items()}
 
     def run_train_epoch(self, runner, dataset, fold_num, epoch_num,
                         resume=None):
@@ -962,20 +1018,17 @@ class Trainer:
         transforms = dataset.transforms if callable(
             getattr(dataset, "transforms", None)) else None
 
+        target = self.batch_rows()[0]
+
         def prepare(batches):
             out = []
             for batch in batches:
                 if transforms is not None:
                     batch["data"] = augment.apply_to_batch(
                         transforms, batch["data"], self.host_rng)
-                out.append(_pad_batch(batch, batch_size))
-            stacked = {k: np.stack([b[k] for b, _ in out])
-                       for k in ("data", "target")}
-            stacked["mask"] = np.stack([m for _, m in out])
-            if self.meta_features:
-                stacked["meta"] = np.stack([b["metadata"] for b, _ in out])
-            dev = {k: torch.from_numpy(v).to(self.device)
-                   for k, v in stacked.items()}
+                out.append(self.step_arrays(batch, target))
+            dev = {k: torch.from_numpy(np.stack([b[k] for b in out])).to(
+                self.device) for k in out[0]}
             return dev, self.host_rng.bit_generator.state
 
         single = conf.get("stop_on_loss") or conf.get("debug")
@@ -1042,16 +1095,23 @@ class Trainer:
     # -- test epochs ----------------------------------------------------------
 
     def run_test_epoch(self, runner, dataset, fold_num, epoch_num):
+        """The device-cache epoch visits ``idx`` in padded batches, the
+        host epoch in batches of the batch size, each padded; the pad rows
+        of every batch are dropped from the outputs, which are gathered
+        from every process first (``mesh.fetch_global``)."""
         batch_size = self.conf.get("batch_size", 16)
+        target = self.batch_rows()[0]
         idx = np.asarray(dataset.current_indices())
         if self._device_cache_eligible(dataset):
-            ids, masks = _epoch_order(idx, batch_size)
+            ids, masks = _epoch_order(idx, target)
+            real = target
             losses, outs = self._device_steps(runner, dataset, ids, masks,
                                               False)
         else:
             loader = EpochLoader(dataset, batch_size, shuffle=False)
+            real = batch_size
             losses, outs = self._host_steps(runner, PrefetchLoader(
-                loader, map_fn=lambda b: self.device_batch(b, batch_size)),
+                loader, map_fn=lambda b: self.device_batch(b, target)),
                 len(loader), train=False)
         if losses is None:
             # an empty split (a bootstrap run's test split can be): no
@@ -1063,11 +1123,12 @@ class Trainer:
                 np.zeros(0, np.float32), np.zeros(shape, np.float32), idx,
                 dataset, fold_num, epoch_num))
             return
-        # both paths visit idx in order; the pad rows end the last batch
+        # both paths visit idx in order, ``real`` rows a batch
         self._defer(lambda: self._record_eval(
             losses.cpu().numpy(),
-            outs.flatten(0, 1)[:len(idx)].cpu().numpy(), idx, dataset,
-            fold_num, epoch_num))
+            mesh.fetch_global(self.axis, outs, 1)[:, :real].reshape(
+                (-1,) + tuple(outs.shape[2:]))[:len(idx)],
+            idx, dataset, fold_num, epoch_num))
 
     def _record_eval(self, losses, outs, idx, dataset, fold_num, epoch_num):
         """Test losses per step, then the per-window outputs ``outs`` of
@@ -1133,7 +1194,7 @@ class Trainer:
         scaling and configuration sidecars.  After an epoch the resume
         point is this fold's next epoch; a step checkpoint passes its own
         (``resume_meta``).  Recording queued by ``deferred_fetch`` runs
-        first."""
+        first.  In a run over processes rank 0 writes it."""
         self._flush_deferred()
         base = self.conf.get("save_model") or "model"
         name = os.path.splitext(os.path.basename(base))[0]
@@ -1148,9 +1209,13 @@ class Trainer:
                            "next_batch": 0,
                            "host_rng": self.host_rng.bit_generator.state}
         out_dir = self.conf.get("saved_models_dir") or "saved_models"
+        path = os.path.join(out_dir, name)
+        if mesh.process_index():
+            # the ranks hold one state: rank 0 writes it
+            return os.path.abspath(path)
         os.makedirs(out_dir, exist_ok=True)
         return checkpoint.save(
-            os.path.join(out_dir, name), state.model.state_dict(),
+            path, state.model.state_dict(),
             scaling=getattr(self, "_current_scaling", None),
             opt_state=state.optimizer.state_dict(),
             rng=state.generator.get_state(), step=state.step,

@@ -5,13 +5,25 @@ Counterpart of ``deepards_tpu/train/losses.py``.  Each loss is computed
 per element, averaged over everything but the batch axis, then averaged
 over the rows with optional per-row ``weights`` (B,), divided by
 ``max(sum(weights), 1)``, so pad rows of a fixed-size batch count zero.
-With ``weights=None`` it is the plain mean.
+With ``weights=None`` it is the plain mean.  Inside ``mesh.sharded_rows``
+the divisor is the count of every rank's rows.
 """
 import torch
 import torch.nn.functional as F
 
+from deepards_tpu_torch.parallel import mesh
 
-def _weighted_mean(per_row, weights):
+
+def weighted_mean(per_row, weights):
+    """The mean of ``per_row`` weighted by ``weights``.  Inside
+    ``mesh.sharded_rows`` the rows are one rank's shard: its weighted sum
+    over the count of every rank's rows, so the ranks' losses sum to the
+    whole batch's."""
+    if mesh.current_sharding() is not None:
+        if weights is None:
+            weights = torch.ones_like(per_row)
+        count = mesh.global_sum(weights.sum())
+        return (per_row * weights).sum() / torch.clamp(count, min=1.0)
     if weights is None:
         return per_row.mean()
     return (per_row * weights).sum() / torch.clamp(weights.sum(), min=1.0)
@@ -27,15 +39,15 @@ def bce_with_logits(logits, target, weights=None):
     """Elementwise sigmoid BCE (torch.nn.BCEWithLogitsLoss's function)."""
     elementwise = F.binary_cross_entropy_with_logits(
         logits, target, reduction="none")
-    return _weighted_mean(_row_reduce(elementwise), weights)
+    return weighted_mean(_row_reduce(elementwise), weights)
 
 
 def mse(pred, target, weights=None):
-    return _weighted_mean(_row_reduce((pred - target) ** 2), weights)
+    return weighted_mean(_row_reduce((pred - target) ** 2), weights)
 
 
 def mae(pred, target, weights=None):
-    return _weighted_mean(_row_reduce(torch.abs(pred - target)), weights)
+    return weighted_mean(_row_reduce(torch.abs(pred - target)), weights)
 
 
 def vacillating_loss(logits, target, alpha, weights=None):
@@ -51,7 +63,7 @@ def vacillating_loss(logits, target, alpha, weights=None):
     rh = -torch.log(2 * torch.exp(-alpha) * (1 - frac) + 2 * frac - 1)
     lh = torch.where(torch.isnan(lh) | (lh > alpha), rh, lh)
     lh = torch.minimum(lh, alpha)
-    return bce + _weighted_mean(_row_reduce(lh), weights)
+    return bce + weighted_mean(_row_reduce(lh), weights)
 
 
 def confidence_penalty_loss(logits, target, beta, weights=None):
@@ -59,7 +71,7 @@ def confidence_penalty_loss(logits, target, beta, weights=None):
     bce = bce_with_logits(logits, target, weights)
     logp = torch.log_softmax(logits, dim=-1)
     p = torch.softmax(logits, dim=-1)
-    confidence = -_weighted_mean(_row_reduce(beta * p * logp), weights)
+    confidence = -weighted_mean(_row_reduce(beta * p * logp), weights)
     return bce - confidence
 
 
@@ -72,7 +84,7 @@ def focal_loss(logits, target, alpha=0.25, gamma=2.0, weights=None):
     if alpha >= 0:
         alpha_t = alpha * target + (1 - alpha) * (1 - target)
         loss = alpha_t * loss
-    return _weighted_mean(_row_reduce(loss), weights)
+    return weighted_mean(_row_reduce(loss), weights)
 
 
 def get_classification_loss(loss_func, valpha=float("inf"), conf_beta=1.0):

@@ -114,6 +114,8 @@ class NestedTrainer(Trainer):
     """The fold loop over patients; the rest (datasets, records,
     checkpoints, resume at an epoch) is ``Trainer``'s."""
 
+    shards_batches = False  # one patient a step, whole on every rank
+
     def nested_runners(self, state, transform, window_shape, graphed=None,
                        dropout=True):
         """The fold's ``BucketRunners`` over windows of ``window_shape``

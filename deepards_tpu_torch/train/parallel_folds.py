@@ -29,6 +29,7 @@ from torch import nn
 
 from deepards_tpu_torch.data.pipeline import transform_batch
 from deepards_tpu_torch.models.layers import bn_row_mask
+from deepards_tpu_torch.parallel import mesh
 from deepards_tpu_torch.train import checkpoint
 from deepards_tpu_torch.train.loop import Trainer
 from deepards_tpu_torch.train.steps import (
@@ -120,6 +121,8 @@ def make_fold_steps(model, loss_fn, mus, stds, is_padded=False,
 class ParallelFoldTrainer(Trainer):
     """All k folds of a standard classifier trained at once."""
 
+    shards_batches = False  # the stacked folds run whole on every rank
+
     def train_and_test(self):
         conf = self.conf
         if not conf.get("kfolds"):
@@ -156,6 +159,7 @@ class ParallelFoldTrainer(Trainer):
         state = self.new_stacked_state(n_folds)
         if conf.get("load_checkpoint"):
             self.restore_stacked(state, conf.load_checkpoint)
+        mesh.replicate_tree(state.model.parameters())
         runner = self.make_stacked_runner(state, train_dataset)
         epochs = conf.get("epochs", 10)
         start_epoch = self.resume_meta["epoch"] if self.resume_meta else 1

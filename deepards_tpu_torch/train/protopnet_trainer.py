@@ -38,6 +38,8 @@ import torch
 
 from deepards_tpu_torch.data.pipeline import BatchPipeline
 from deepards_tpu_torch.models.layers import bn_row_mask
+from deepards_tpu_torch.parallel import mesh
+from deepards_tpu_torch.train import losses as loss_lib
 from deepards_tpu_torch.train.loader import EpochLoader, PrefetchLoader
 from deepards_tpu_torch.train.loop import (
     Trainer,
@@ -66,12 +68,6 @@ def ppnet_loss(logits, target, min_distances, class_identity_windows,
     probs = torch.softmax(logits, dim=-1).clamp(1e-7, 1 - 1e-7)
     bce_rows = -(target * torch.log(probs)
                  + (1 - target) * torch.log(1 - probs)).mean(dim=-1)
-    denom = None if weights is None else torch.clamp(weights.sum(), min=1.0)
-
-    def reduce(rows):
-        return rows.mean() if weights is None else (
-            rows * weights).sum() / denom
-
     ident = class_identity_windows  # (S*P, classes)
     correct = ident.index_select(1, target.argmax(dim=1)).t()  # (B, S*P)
     inverted = max_dist - min_distances
@@ -79,10 +75,14 @@ def ppnet_loss(logits, target, min_distances, class_identity_windows,
     separation = max_dist - (inverted * (1 - correct)).max(dim=1).values
     if use_l1 and last_layer_kernel is not None:
         l1 = (last_layer_kernel * (1 - ident)).abs().sum()
+        axis = mesh.current_sharding()
+        if axis is not None and axis.rank:
+            l1 = l1 * 0  # the ranks' losses sum to one L1 term
     else:
         l1 = torch.zeros((), dtype=logits.dtype, device=logits.device)
-    cls, cluster, separation = (reduce(bce_rows), reduce(cluster),
-                                reduce(separation))
+    cls, cluster, separation = (
+        loss_lib.weighted_mean(rows, weights)
+        for rows in (bce_rows, cluster, separation))
     loss = (cls + clust_lambda * cluster + sep_lambda * separation
             + 1e-4 * l1)
     return loss, (cls, cluster, separation, l1)
@@ -156,7 +156,8 @@ def make_ppnet_steps(model, transform, class_identity_windows, max_dist,
                 p.grad = g
             state.optimizer.step()
             state.step += 1
-            return torch.stack([loss.detach()] + [a.detach() for a in aux])
+            return mesh.global_sum(torch.stack(
+                [loss.detach()] + [a.detach() for a in aux]))
 
         return train_step
 
@@ -165,7 +166,7 @@ def make_ppnet_steps(model, transform, class_identity_windows, max_dist,
         logits, min_d = forward(state, data, mask, False, False)
         loss, _ = ppnet_loss(logits, target, min_d, ident, max_dist,
                              clust_lambda, sep_lambda, weights=mask)
-        return loss, logits
+        return mesh.global_sum(loss), logits
 
     return {s: train_step_of(s) for s in STAGES}, eval_step
 
@@ -188,6 +189,7 @@ class ProtoPNetTrainer(Trainer):
             for stage, params in stage_groups(model).items()})
         generator = torch.Generator(device=self.device).manual_seed(
             self._fold_seed(fold_num, 1))
+        mesh.replicate_tree(model.parameters())
         return TrainState(model, optimizers, generator)
 
     def make_steps(self, state, dataset, dropout=True):
@@ -210,14 +212,15 @@ class ProtoPNetTrainer(Trainer):
         card unless ``graphed`` says otherwise."""
         train_steps, eval_step = self.make_steps(state, dataset, dropout)
         data_shape, target_width = sample_shapes(dataset)
-        shape = (self.conf.get("batch_size", 16),) + data_shape
+        shape = (self.batch_rows()[1],) + data_shape
         if graphed is None:
-            graphed = self.device.type == "cuda"
+            graphed = self.device.type == "cuda" and not self.axis.sharded
         return {stage: StepRunner(
             TrainState(state.model, state.optimizer.stages[stage],
                        state.generator),
             train_steps[stage], eval_step if stage == "last" else None,
-            shape, target_width=target_width, graphed=graphed)
+            shape, target_width=target_width, graphed=graphed,
+            axis=self.axis)
             for stage in STAGES}
 
     def run_fold(self, fold_num, train_dataset, test_dataset):
@@ -272,7 +275,7 @@ class ProtoPNetTrainer(Trainer):
         else:
             idx = np.asarray(dataset.current_indices())
             ids, masks = _epoch_order(self.host_rng.permutation(idx),
-                                      self.conf.get("batch_size", 16))
+                                      self.batch_rows()[0])
             if self.conf.get("debug"):
                 ids, masks = ids[:1], masks[:1]
             out, _ = self._device_steps(runner, dataset, ids, masks, True)
@@ -288,7 +291,7 @@ class ProtoPNetTrainer(Trainer):
         steps = 1 if self.conf.get("debug") else len(loader)
         batches = PrefetchLoader(
             itertools.islice(loader, steps),
-            map_fn=lambda b: self.device_batch(b, batch_size))
+            map_fn=lambda b: self.device_batch(b, self.batch_rows()[0]))
         return self._host_steps(runner, batches, steps)[0]
 
     def _record_ppnet_losses(self, out, fold_num, epoch_num):

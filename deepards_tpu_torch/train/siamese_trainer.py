@@ -85,6 +85,8 @@ def make_siamese_steps(transform=None, compute_dtype=None,
 
 
 class SiameseTrainer(Trainer):
+    shards_batches = False  # its triplet batches run whole on every rank
+
     def __init__(self, conf, device=None, verbose=True):
         refused = [k for k in REFUSED_OPTIONS if conf.get(k)]
         if refused:

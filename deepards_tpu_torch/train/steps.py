@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from deepards_tpu_torch.models.layers import bn_row_mask
+from deepards_tpu_torch.parallel import mesh
 
 
 class ClippedOptimizer:
@@ -33,7 +34,9 @@ class ClippedOptimizer:
     decayed gradient, which equals optax's trace started from zeros.
     ``adam`` is ``torch.optim.Adam`` with no decay, as optax.adam in the
     JAX chain; on the card it keeps its step count on the device
-    (``capturable``), so a CUDA graph can hold its update.
+    (``capturable``), so a CUDA graph can hold its update.  Inside
+    ``mesh.sharded_rows`` the gradients are summed over the ranks before
+    the clamp.
     """
 
     def __init__(self, params, optimizer="sgd", learning_rate=0.001,
@@ -55,8 +58,9 @@ class ClippedOptimizer:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self):
+        grads = [p.grad for p in self.params if p.grad is not None]
+        mesh.sum_gradients(grads)
         if self.clip_val is not None:
-            grads = [p.grad for p in self.params if p.grad is not None]
             torch._foreach_clamp_min_(grads, -self.clip_val)
             torch._foreach_clamp_max_(grads, self.clip_val)
         self.optimizer.step()
@@ -170,12 +174,13 @@ def make_train_step(
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return loss.detach()
+        return mesh.global_sum(loss.detach())
 
     @torch.no_grad()
     def eval_step(state, data, target, mask, meta=None):
-        return loss_wrap(state, data, target, mask, meta,
-                         eval_dropout_active)
+        loss, out = loss_wrap(state, data, target, mask, meta,
+                              eval_dropout_active)
+        return mesh.global_sum(loss), out
 
     return train_step, eval_step
 
@@ -207,6 +212,10 @@ class StepRunner:
     replay draws new dropout masks and advances it as an eager step does.  Capture binds the tensors it
     reads: the params, the optimizer state and the buffers must be
     changed in place from then on.  A capture that fails raises.
+    ``axis``: the run's ``mesh.DataAxis``; when it is sharded over
+    processes the buffers hold this rank's rows, each step runs eagerly
+    within ``mesh.sharded_rows`` (a graph cannot capture gloo's
+    collectives), and its loss is the whole batch's.
     ``pool``: a ``torch.cuda.graph_pool_handle()`` whose memory the graphs
     share with other runners' graphs (one step runs at a time, and what
     a step returns is copied out before the next), in place of a private
@@ -217,8 +226,9 @@ class StepRunner:
 
     def __init__(self, state, train_step, eval_step, data_shape,
                  target_width=2, meta_shape=None, graphed=False,
-                 extra_inputs=None, pool=None):
+                 extra_inputs=None, pool=None, axis=None):
         self.state = state
+        self.axis = axis
         self.pool = pool
         self._train_step = train_step
         self._eval_step = eval_step
@@ -237,18 +247,23 @@ class StepRunner:
             if device.type != "cuda":
                 raise ValueError("CUDA graphs need the model on a CUDA "
                                  "device, not {}".format(device))
+            if axis is not None and axis.sharded:
+                raise ValueError("a step sharded over processes runs its "
+                                 "gloo collectives eagerly: no CUDA graph")
             self._capture()
 
     def train(self):
         if self.graphs is None:
-            return self._train_step(self.state, **self.inputs)
+            with mesh.sharded_rows(self.axis):
+                return self._train_step(self.state, **self.inputs)
         self.graphs["train"].replay()
         self.state.step += 1
         return self._train_loss
 
     def eval(self):
         if self.graphs is None:
-            return self._eval_step(self.state, **self.inputs)
+            with mesh.sharded_rows(self.axis):
+                return self._eval_step(self.state, **self.inputs)
         self.graphs["eval"].replay()
         return self._eval_loss, self._eval_out
 

@@ -110,10 +110,10 @@ def test_registry_sweep_records_a_refused_option(sweep_dir):
     bad = sweep_dir / "refused.yml"
     with open(os.path.join(registry,
                            "unpadded_centered_nb20_cnn_linear.yml")) as f:
-        bad.write_text(f.read() + "plot_untiled_disease_evol: true\n")
+        bad.write_text(f.read() + "model_devices: 2\n")
     error = registry_sweep.run_one(str(bad), cohort, csv, "cpu")
     assert error.startswith("NotImplementedError")
-    assert "plot_untiled_disease_evol" in error
+    assert "model_devices" in error
     assert not [n for n in os.listdir(str(sweep_dir))
                 if n.startswith("regsweep_")]  # its results dir is gone
 

@@ -39,6 +39,7 @@ from deepards_tpu.train import checkpoint as jckpt
 from deepards_tpu_torch.cli import patient_gradcam as cli_gradcam
 from deepards_tpu_torch.cli import protopnet_analysis as cli_protopnet
 from deepards_tpu_torch.data.dataset import ARDSRawDataset
+from deepards_tpu_torch.utils import figures
 
 # parallel test workers share the cores: one torch thread each
 torch.set_num_threads(1)
@@ -69,6 +70,8 @@ def saved(tmp_path_factory):
 def no_plots(monkeypatch):
     monkeypatch.setattr(jpatient, "_get_plt", lambda: None)
     monkeypatch.setattr(jprototypes, "_get_plt", lambda: None)
+    monkeypatch.setattr(figures, "refusal",
+                        lambda device: "matplotlib is missing")
 
 
 def _test_patients(path, fold):

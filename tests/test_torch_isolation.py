@@ -105,7 +105,12 @@ def test_port_imports_no_jax_and_no_reference_package():
             "deepards_tpu_torch.eval.legacy_results",
             "deepards_tpu_torch.cli.create_datasets",
             "deepards_tpu_torch.cli.anonymize_cohort",
-            "deepards_tpu_torch.utils.profiling"} <= set(report["modules"])
+            "deepards_tpu_torch.utils.profiling",
+            "deepards_tpu_torch.utils.figures",
+            "deepards_tpu_torch.parallel.mesh",
+            "deepards_tpu_torch.cli.launch_distributed",
+            "deepards_tpu_torch.cli.dataset_figs",
+            "deepards_tpu_torch.cli.dl_vs_rf"} <= set(report["modules"])
     forbidden = [
         name for name in report["loaded"]
         if name == "deepards_tpu" or name.startswith("deepards_tpu.")
@@ -604,7 +609,8 @@ print(json.dumps(launches))
 def test_analytics_need_no_pandas_sklearn_yaml_or_matplotlib(tmp_path):
     """chip_smoke.py's analytics phase on the CPU at a small size (S = 4,
     6 patients, 2 folds): a ``--perform-dtw-preprocessing`` training with
-    its frames held to the CPU's, a 40-window patient, ``cli.evaluate``
+    its frames held to the CPU's, the plot options' training (its PNG
+    stages refused by name), a 40-window patient, ``cli.evaluate``
     against ``cli.predict``, the three cam CLIs (their PNG stages refused
     by name) and the results tools, with pandas, scikit-learn, PyYAML,
     matplotlib, JAX and deepards_tpu blocked."""
@@ -615,8 +621,9 @@ def test_analytics_need_no_pandas_sklearn_yaml_or_matplotlib(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     launches = json.loads(out.stdout.strip().splitlines()[-1])
     assert launches == dict.fromkeys(
-        ("analytics_dtw_preprocessing", "analytics_real_size_patient",
-         "evaluate", "cam_analytics", "results_tools"), 0)
+        ("analytics_dtw_preprocessing", "analytics_plots",
+         "analytics_real_size_patient", "evaluate", "cam_analytics",
+         "results_tools"), 0)
     phase = [json.loads(line) for line in out.stdout.splitlines()
              if line.startswith('{"phase": "analytics"')]
     assert len(phase) == 1
@@ -628,6 +635,11 @@ def test_analytics_need_no_pandas_sklearn_yaml_or_matplotlib(tmp_path):
     assert phase[0]["results_tools"]["results_files"] == 3
     assert "PNG stage 1d_cam_intensities.png refused: matplotlib is " \
         "missing" in out.stdout
+    # the plot options' run: its frames the DTW run's, its PNGs refused
+    plots = phase[0]["plots"]
+    assert plots["frames_unequal"] == [] and plots["frames"] >= 2
+    assert plots["npz"] == len(plots["png_stages"]) > 0
+    assert "PNG stage tiled_" in out.stdout
     assert (tmp_path / "analytics" / "dtw_cache").is_dir()
 
 
@@ -779,3 +791,38 @@ def test_experiments_phase_needs_no_yaml_or_pandas(tmp_path):
         "holdout_with_similarity_split.yml",
         "unpadded_centered_nb20_cnn_linear.yml"]
     assert fields["profiling"]["step_spans"] == 3
+
+
+def test_matplotlib_and_sklearn_only_inside_functions():
+    """No module of the port, and not chip_smoke.py, imports matplotlib or
+    scikit-learn at module level; the modules that draw or fit import them
+    inside the function that does."""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(ROOT, "deepards_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+    top, inside = [], set()
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        nested = {id(n) for fn in ast.walk(tree)
+                  if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                  for n in ast.walk(fn)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("matplotlib", "sklearn"):
+                    rel = os.path.relpath(path, ROOT)
+                    if id(node) in nested:
+                        inside.add((rel, name.split(".")[0]))
+                    else:
+                        top.append((rel, node.lineno, name))
+    assert top == []
+    assert {("deepards_tpu_torch/utils/figures.py", "matplotlib"),
+            ("deepards_tpu_torch/cli/dl_vs_rf.py", "sklearn")} <= inside

@@ -38,6 +38,7 @@ from deepards_tpu_torch.explain import gradcam
 from deepards_tpu_torch.explain import patient_gradcam as patient
 from deepards_tpu_torch.models import densenet1d, heads
 from deepards_tpu_torch.transplant import transplant
+from deepards_tpu_torch.utils import figures
 
 # parallel test workers share the cores: one torch thread each
 torch.set_num_threads(1)
@@ -174,9 +175,11 @@ def pgcs(setup):
 
 @pytest.fixture(autouse=True)
 def no_plots(monkeypatch):
-    """The JAX package writes its .npz dumps, as on a host without
+    """Both packages write their .npz dumps, as on a host without
     matplotlib."""
     monkeypatch.setattr(jpatient, "_get_plt", lambda: None)
+    monkeypatch.setattr(figures, "refusal",
+                        lambda device: "matplotlib is missing")
 
 
 def _run(pgc, results_dir, op, **kwargs):

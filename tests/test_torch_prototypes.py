@@ -33,6 +33,7 @@ from deepards_tpu_torch.data.dataset import ARDSRawDataset
 from deepards_tpu_torch.explain import prototypes
 from deepards_tpu_torch.models import densenet1d, protopnet1d
 from deepards_tpu_torch.transplant import transplant
+from deepards_tpu_torch.utils import figures
 
 # parallel test workers share the cores: one torch thread each
 torch.set_num_threads(1)
@@ -153,6 +154,8 @@ def test_topk_pick_matches_jax(analyses, gt, pred, topk, seed):
 def test_random_sequence_pane_matches_jax(analyses, tmp_path, monkeypatch):
     got, want = analyses
     monkeypatch.setattr(jprototypes, "_get_plt", lambda: None)
+    monkeypatch.setattr(figures, "refusal",
+                        lambda device: "matplotlib is missing")
     base = got.make_random_sequence_pane(str(tmp_path / "port"),
                                          rng=np.random.default_rng(2))
     want.make_random_sequence_pane(str(tmp_path / "jax"),
@@ -188,6 +191,8 @@ def test_viz_prototypes_matches_jax(cohort, tmp_path, monkeypatch):
     (train, _), (jtrain, _) = cohort
     jmodel, _, model = ppnets()
     monkeypatch.setattr(jprototypes, "_get_plt", lambda: None)
+    monkeypatch.setattr(figures, "refusal",
+                        lambda device: "matplotlib is missing")
     positions = model.proto_layer_rf_info()[0]
     push_info = [{"window_index": 0, "flat_pos": 3, "distance": 1.0}, None,
                  {"window_index": 9, "flat_pos": positions + 5,

@@ -316,7 +316,8 @@ def test_resume_from_an_epoch_checkpoint(synthetic_cohort, tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(plot_tiled_disease_evol=True), dict(dp_devices=4),
+    dict(model_devices=2),
+    dict(network="cnn_regressor", plot_tiled_disease_evol=True),
 ])
 def test_unported_options_raise(synthetic_cohort, tmp_path, option):
     with pytest.raises(NotImplementedError):
