@@ -25,16 +25,24 @@ class EpochLoader:
         self.indices = indices
         self.start_batch = start_batch
 
-    def __len__(self):
+    def _rows(self):
         if self.indices is not None:
-            n = len(self.indices)
-        else:
-            n = len(self.dataset.current_indices())
+            return len(self.indices)
+        return len(self.dataset.current_indices())
+
+    def __len__(self):
+        n = self._rows()
         if self.drop_last:
             total = n // self.batch_size
         else:
             total = int(np.ceil(n / self.batch_size))
         return max(total - self.start_batch, 0)
+
+    def batch_sizes(self):
+        """The rows of each batch the epoch yields."""
+        starts = np.arange(self.start_batch,
+                           self.start_batch + len(self)) * self.batch_size
+        return np.minimum(self._rows() - starts, self.batch_size)
 
     def __iter__(self):
         if self.indices is not None:

@@ -19,6 +19,10 @@ augmentation transforms, step checkpoints, a mid-epoch resume, ``debug``,
 batches at a time, and with ``stop_on_loss`` or ``debug`` one at a time.
 ``defer_fetch`` (default on) queues the epochs' result recording until
 the fold ends, so the card never waits on the host between epochs.
+Filling the runner's buffers for a step is a ``deepards.trainer.stage``
+span and the queue's flush a ``deepards.records.flush`` span
+(``utils.profiling``); every epoch counts its real and pad rows in
+``windows.real`` and ``windows.pad``.
 Randomness: numpy ``default_rng(seed)`` streams for the permutations, the
 augmentation and the oversampling (those of the JAX package, drawn in its
 order, so both draw the same batches and warps), a ``torch.Generator``
@@ -63,6 +67,7 @@ from deepards_tpu_torch.train.steps import (
     make_optimizer,
     make_train_step,
 )
+from deepards_tpu_torch.utils import profiling
 
 # the options that draw the test predictions after the folds
 PLOT_OPTIONS = ("plot_untiled_disease_evol", "plot_tiled_disease_evol",
@@ -235,6 +240,14 @@ def _epoch_order(idx, batch_size):
     masks[n:] = 0.0
     ids = np.resize(idx, steps * batch_size)
     return ids.reshape(steps, batch_size), masks.reshape(steps, batch_size)
+
+
+def _count_windows(masks):
+    """Count the real and pad rows of the 0/1 row masks ``masks`` (numpy)
+    in ``windows.real`` and ``windows.pad``."""
+    real = int(np.count_nonzero(masks))
+    profiling.count("windows.real", real)
+    profiling.count("windows.pad", masks.size - real)
 
 
 def sample_shapes(dataset):
@@ -864,8 +877,11 @@ class Trainer:
             self._deferred.append(lambda: fn(*args))
 
     def _flush_deferred(self):
-        while self._deferred:
-            self._deferred.pop(0)()
+        if not self._deferred:
+            return
+        with profiling.annotate("deepards.records.flush"):
+            while self._deferred:
+                self._deferred.pop(0)()
 
     # -- train epochs ---------------------------------------------------------
 
@@ -913,6 +929,7 @@ class Trainer:
         B, ...) outputs of this process's rows, on the device."""
         dev = self._get_device_cache(dataset)
         rows = self.axis.local(ids.shape[1])
+        _count_windows(masks[:, rows])
         ids = torch.from_numpy(np.ascontiguousarray(ids[:, rows])).to(
             self.device)
         masks = torch.from_numpy(np.ascontiguousarray(masks[:, rows])).to(
@@ -921,9 +938,10 @@ class Trainer:
         losses = outs = None
         inputs = runner.inputs
         for i in range(steps):
-            for key, table in dev.items():
-                torch.index_select(table, 0, ids[i], out=inputs[key])
-            inputs["mask"].copy_(masks[i])
+            with profiling.annotate("deepards.trainer.stage"):
+                for key, table in dev.items():
+                    torch.index_select(table, 0, ids[i], out=inputs[key])
+                inputs["mask"].copy_(masks[i])
             if train:
                 losses = _store(losses, i, runner.train(), steps)
             else:
@@ -942,8 +960,9 @@ class Trainer:
         ``_device_steps`` stores them (None for no batch)."""
         losses = outs = None
         for i, batch in enumerate(batches):
-            for key, value in batch.items():
-                runner.inputs[key].copy_(value)
+            with profiling.annotate("deepards.trainer.stage"):
+                for key, value in batch.items():
+                    runner.inputs[key].copy_(value)
             if train:
                 losses = _store(losses, i, runner.train(), steps)
             else:
@@ -988,6 +1007,14 @@ class Trainer:
         """``step_arrays`` on the device."""
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in self.step_arrays(batch, batch_size).items()}
+
+    def _count_host_epoch(self, loader, target):
+        """Count the real and pad rows of this process's share of a host
+        epoch, ``loader``'s batches each padded to ``target`` rows, once
+        an epoch as ``_device_steps`` does (an epoch cut short by
+        ``debug`` or ``stop_on_loss`` counts all of its batches)."""
+        masks = np.arange(target) < loader.batch_sizes()[:, None]
+        _count_windows(masks[:, self.axis.local(target)])
 
     def run_train_epoch(self, runner, dataset, fold_num, epoch_num,
                         resume=None):
@@ -1038,6 +1065,7 @@ class Trainer:
                 len(loader), " (fused x{})".format(fused) if fused > 1
                 else ""))
         losses = torch.empty(len(loader), device=self.device)
+        self._count_host_epoch(loader, target)
         n = 0  # steps run in this call
         last_ckpt = start_batch
         for chunk, rng_state in PrefetchLoader(_chunks(loader, fused),
@@ -1045,8 +1073,9 @@ class Trainer:
             # the runner's buffers are written here, on the main thread
             steps = chunk["data"].shape[0]
             for j in range(steps):
-                for key, value in chunk.items():
-                    runner.inputs[key].copy_(value[j])
+                with profiling.annotate("deepards.trainer.stage"):
+                    for key, value in chunk.items():
+                        runner.inputs[key].copy_(value[j])
                 losses[n] = runner.train()
                 n += 1
                 # the loss of step N is read after step N+1 is queued, so
@@ -1110,6 +1139,7 @@ class Trainer:
         else:
             loader = EpochLoader(dataset, batch_size, shuffle=False)
             real = batch_size
+            self._count_host_epoch(loader, target)
             losses, outs = self._host_steps(runner, PrefetchLoader(
                 loader, map_fn=lambda b: self.device_batch(b, target)),
                 len(loader), train=False)

@@ -20,7 +20,8 @@ on the card its train and eval steps are CUDA graphs captured then, and
 all the buckets' graphs share one memory pool, so the fold holds about
 one largest step's activations, not one a bucket.  Each patient's
 windows are gathered by index from the device cache into the runner's
-buffers.
+buffers (a ``deepards.trainer.stage`` span), and its real and pad
+windows counted (``windows.real``, ``windows.pad``).
 """
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ from deepards_tpu_torch.data.pipeline import BatchPipeline
 from deepards_tpu_torch.models.nested import bucket
 from deepards_tpu_torch.train.loop import Trainer
 from deepards_tpu_torch.train.steps import StepRunner
+from deepards_tpu_torch.utils import profiling
 
 
 def patient_groups(dataset):
@@ -180,15 +182,19 @@ class NestedTrainer(Trainer):
             [y for _, _, y in groups]]).to(self.device)
         outs = []
         for i, (_, idxs, _) in enumerate(groups):
-            w = len(idxs)
-            runner = runners[bucket(w)]
+            w, size = len(idxs), bucket(len(idxs))
+            runner = runners[size]
+            profiling.count("windows.real", w)
+            profiling.count("windows.pad", size - w)
             inputs = runner.inputs
-            ids = torch.from_numpy(np.asarray(idxs)).to(self.device)
-            torch.index_select(dev["data"], 0, ids, out=inputs["data"][0, :w])
-            inputs["data"][0, w:].zero_()
-            inputs["mask"].zero_()
-            inputs["mask"][0, :w] = 1.0
-            inputs["target"].copy_(targets[i:i + 1])
+            with profiling.annotate("deepards.trainer.stage"):
+                ids = torch.from_numpy(np.asarray(idxs)).to(self.device)
+                torch.index_select(dev["data"], 0, ids,
+                                   out=inputs["data"][0, :w])
+                inputs["data"][0, w:].zero_()
+                inputs["mask"].zero_()
+                inputs["mask"][0, :w] = 1.0
+                inputs["target"].copy_(targets[i:i + 1])
             if train:
                 losses[i] = runner.train()
             else:

@@ -22,6 +22,7 @@ from torch import nn
 
 from deepards_tpu_torch.models.layers import bn_row_mask
 from deepards_tpu_torch.parallel import mesh
+from deepards_tpu_torch.utils import profiling
 
 
 class ClippedOptimizer:
@@ -198,7 +199,9 @@ class StepRunner:
     for a per-breath head, (B, T) for a regressor).  What these return
     may be the graph's static outputs: copy it out before the next call.
     A step may write its inputs in place (the carry it hands on).
-    ``eval_step`` None: a runner of train steps only.
+    ``eval_step`` None: a runner of train steps only.  Each call is a
+    ``deepards.step.run`` span, and on the card each replay lies between
+    ``profiling.step_events``.
 
     graphed: capture each step as a ``torch.cuda.CUDAGraph``.  A few
     eager steps on a side stream come first, as capture asks, with
@@ -253,19 +256,29 @@ class StepRunner:
             self._capture()
 
     def train(self):
-        if self.graphs is None:
-            with mesh.sharded_rows(self.axis):
-                return self._train_step(self.state, **self.inputs)
-        self.graphs["train"].replay()
-        self.state.step += 1
-        return self._train_loss
+        with profiling.annotate("deepards.step.run"):
+            if self.graphs is None:
+                with mesh.sharded_rows(self.axis):
+                    return self._train_step(self.state, **self.inputs)
+            self._replay("train")
+            self.state.step += 1
+            return self._train_loss
 
     def eval(self):
-        if self.graphs is None:
-            with mesh.sharded_rows(self.axis):
-                return self._eval_step(self.state, **self.inputs)
-        self.graphs["eval"].replay()
-        return self._eval_loss, self._eval_out
+        with profiling.annotate("deepards.step.run"):
+            if self.graphs is None:
+                with mesh.sharded_rows(self.axis):
+                    return self._eval_step(self.state, **self.inputs)
+            self._replay("eval")
+            return self._eval_loss, self._eval_out
+
+    def _replay(self, name):
+        """Replay a graph between the step events."""
+        pair = profiling.step_events.begin()
+        try:
+            self.graphs[name].replay()
+        finally:
+            profiling.step_events.end(pair)
 
     def _capture(self):
         state = self.state
