@@ -10,7 +10,12 @@ checkpoints asks for it); with none it runs every phase.  It
 builds the CUDA kernels from the checkout's sources with nvcc, holds each
 kernel against its plain PyTorch version (the DTW kernel exactly, at six
 shapes, each timed beside a bound computed from the FP32 instructions per
-cell in the kernel's SASS and the card's SM clock), then drives the port's
+cell in the kernel's SASS and the card's SM clock; the LSTM kernels within
+stated tolerances of the loop at the nested network's shape and cnn_lstm's
+with a carry, then timed graphed at the nested shape beside the loop,
+cuDNN's ``torch.nn.LSTM`` and the floor of 2 x 2,048 cluster barriers;
+every network with an LSTM outside ``vmap`` must launch them, and the
+real-size nested step replays both), then drives the port's
 main path: a server over a full-width cnn_linear/densenet18 checkpoint (random
 weights from a seed) answering /predict requests, and DTW scoring of the
 served windows' breaths through the kernel.  Then the training path:
@@ -379,6 +384,9 @@ def device_breakdown(fn, reps=5, top=8):
         "kernel_launches_per_call": sum(e.count for e in kernels) / reps,
         "host_dispatches_per_call": sum(
             e.count for e in events if e.key in HOST_DISPATCHES) / reps,
+        "lstm_launches_per_call": sum(
+            e.count for e in kernels if "lstm_fwd_kernel" in e.key
+            or "lstm_bwd_kernel" in e.key) / reps,
         "top": [{"name": e.key[:80],
                  "ms_per_call": e.self_device_time_total / reps / 1e3,
                  "launches_per_call": e.count / reps}
@@ -438,10 +446,15 @@ def sm_clock_hz():
 
 
 def kernel_key(symbol):
-    """``warp<R>`` or ``strip`` for a dtw kernel's mangled name, else None."""
+    """``warp<R>`` or ``strip`` for a dtw kernel's mangled name, an LSTM
+    kernel's name with its mangled template arguments, else None."""
     rows = re.search(r"dtw_warp_kernelILi(\d+)E", symbol)
     if rows:
         return "warp" + rows.group(1)
+    lstm = re.search(r"(lstm_\w+?_kernel)(?:I(\w+?)EEv)?", symbol)
+    if lstm:
+        return lstm.group(1) + ("<{}>".format(lstm.group(2))
+                                if lstm.group(2) else "")
     return "strip" if "dtw_strip_kernel" in symbol else None
 
 
@@ -667,6 +680,192 @@ def phase_kernel():
     return {**shapes[-1], "max_abs_err": max_err,
             "fp32_per_cell": {k: v["fp32_per_cell"]
                               for k, v in per_cell.items()}}
+
+
+# the nested network's LSTM: one patient of 2,048 windows, 128 features a
+# window, 128 units, under bf16 compute; and cnn_lstm's (batch 16, S 20,
+# 16 units) with a carry passed in, float32
+LSTM_NESTED = (1, 2048, 128, 128, "bfloat16", False)
+LSTM_CARRY = (16, 20, 128, 16, "float32", True)
+LSTM_NESTED_F32 = LSTM_NESTED[:4] + ("float32", False)
+# kernel against loop (tests/test_torch_lstm_cuda.py states why): float32
+# outputs and carry; each gradient relative to its largest element, in
+# float32 and where bf16 compute casts it
+LSTM_OUT_ATOL, LSTM_GRAD_RTOL, LSTM_BF16_GRAD_RTOL = 2e-5, 2e-4, 1 / 64
+
+
+@contextlib.contextmanager
+def lstm_loop_only():
+    """Every LSTM runs the plain loop (``lstm_reference``) inside."""
+    from deepards_tpu_torch.ops import lstm as lstm_ops
+
+    plan = lstm_ops.kernel_plan
+    lstm_ops.kernel_plan = lambda xi, w_h: None
+    try:
+        yield
+    finally:
+        lstm_ops.kernel_plan = plan
+
+
+def lstm_case(shape, seed=SEED):
+    """A seeded LSTM on the card at ``shape`` (LSTM_NESTED's layout), its
+    input, carry and loss weights, and ``step()``: one forward and
+    backward, returning the outputs, carry and every gradient."""
+    import torch
+
+    from deepards_tpu_torch.models.recurrent import LSTM
+
+    batch, steps, features, hidden, dtype, carry = shape
+    dtype = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    lstm = LSTM(features, hidden).reset_parameters(
+        torch.Generator().manual_seed(seed)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((batch, steps, features), generator=gen, device=dev)
+    x = x.to(dtype).requires_grad_()
+    start = None
+    if carry:
+        start = tuple(0.5 * torch.randn((batch, hidden), generator=gen,
+                                        device=dev) for _ in range(2))
+        start = tuple(t.requires_grad_() for t in start)
+    weights = [torch.randn(s, generator=gen, device=dev) for s in (
+        (batch, steps, hidden), (batch, hidden), (batch, hidden))]
+    params = dict(lstm.named_parameters())
+    leaves = [x, *params.values(), *(start or ())]
+    names = ["x", *params, *(["c0", "h0"] if carry else [])]
+
+    def step():
+        if dtype == torch.bfloat16:
+            cast = {k: v.to(dtype) for k, v in params.items()}
+            (c, h), out = torch.func.functional_call(lstm, cast, (x, start))
+        else:
+            (c, h), out = lstm(x, start)
+        loss = sum((t * w).sum() for t, w in zip((out, c, h), weights))
+        grads = torch.autograd.grad(loss, leaves)
+        got = {"out": out.detach(), "c": c.detach(), "h": h.detach()}
+        got.update({"d" + n: g for n, g in zip(names, grads)})
+        return got
+
+    return step
+
+
+def lstm_gaps(got, want, bf16):
+    """Each tensor's largest gap, kernel against loop, with its limit."""
+    out = {}
+    for name, w in want.items():
+        gap = float((got[name].double() - w.double()).abs().max())
+        if name in ("out", "c", "h"):
+            limit = LSTM_OUT_ATOL
+        else:
+            rtol = LSTM_BF16_GRAD_RTOL if bf16 else LSTM_GRAD_RTOL
+            limit = rtol * float(w.double().abs().max())
+        out[name] = {"gap": gap, "limit": limit}
+    return out
+
+
+def graphed(step):
+    """``step`` captured in a CUDA graph (after one warm-up on the side
+    stream); returns the replay."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return graph.replay
+
+
+def phase_lstm():
+    """The LSTM kernels against the loop on the card (the nested shape,
+    and cnn_lstm's with a carry), then at the nested shape, forward and
+    backward each captured in a graph: the kernels' time and its split
+    (forward kernel, backward kernel, the rest), the loop's (the LSTM
+    alone as the nested step ran it before the kernels), cuDNN's
+    ``torch.nn.LSTM`` (``library_ms``; the port never calls it) and the
+    latency floor (2 x 2,048 hand-offs and cluster barriers at the
+    kernels' cluster and block, the probe kernel)."""
+    import torch
+
+    from deepards_tpu_torch.ops import lstm as lstm_ops
+
+    checks = {}
+    for label, shape in (("nested", LSTM_NESTED),
+                         ("nested_float32", LSTM_NESTED_F32),
+                         ("cnn_lstm_carry", LSTM_CARRY)):
+        step = lstm_case(shape)
+        before = lstm_ops.launches
+        got = step()
+        launched = lstm_ops.launches - before
+        with lstm_loop_only():
+            want = step()
+        torch.cuda.synchronize()
+        gaps = lstm_gaps(got, want, shape[4] == "bfloat16")
+        bad = {k: v for k, v in gaps.items() if not v["gap"] <= v["limit"]}
+        if launched != 2 or bad:
+            raise AssertionError("lstm kernel vs loop at {}: {} launches, "
+                                 "over: {}".format(label, launched, bad))
+        checks[label] = {"launches": launched,
+                         "max_gap": max(v["gap"] for v in gaps.values()),
+                         "gaps": gaps}
+
+    step = lstm_case(LSTM_NESTED)
+    kernel = graphed(step)
+    with lstm_loop_only():
+        plain = graphed(step)
+    kernel_ms = cuda_ms(kernel, warmup=3, reps=20)
+    plain_ms = cuda_ms(plain, warmup=1, reps=5)
+    prof = device_breakdown(kernel, reps=5, top=12)
+    split = {"forward": 0.0, "backward": 0.0, "rest": 0.0}
+    for e in prof["top"]:
+        part = ("forward" if "lstm_fwd_kernel" in e["name"] else
+                "backward" if "lstm_bwd_kernel" in e["name"] else "rest")
+        split[part] += e["ms_per_call"]
+    split["rest"] += prof["device_ms_per_call"] - sum(split.values())
+    plain_prof = device_breakdown(plain, reps=1, top=4)
+
+    batch, steps, features, hidden = LSTM_NESTED[:4]
+    cudnn = torch.nn.LSTM(features, hidden, batch_first=True).cuda()
+    xf = torch.randn((batch, steps, features), device="cuda",
+                     requires_grad=True)
+
+    def library():
+        out, _ = cudnn(xf)
+        torch.autograd.grad(out.sum(), [xf, *cudnn.parameters()])
+
+    library_ms = cuda_ms(library, warmup=2, reps=10)
+    plan = lstm_ops.lstm_plan(
+        batch, hidden, torch.float32,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    probe_ms = lstm_ops.barrier_probe_ms(plan.cluster, plan.threads, steps)
+    floor_ms = 2 * probe_ms
+    out = {"shape": "B {} S {} F {} H {} bf16".format(*LSTM_NESTED[:4]),
+           "plan": plan._asdict(),
+           "ms": kernel_ms, "device_ms": prof["device_ms_per_call"],
+           "launches": prof["kernel_launches_per_call"],
+           "device_ms_by_part": split, "top": prof["top"][:6],
+           "plain_ms": plain_ms,
+           "plain_device_ms": plain_prof["device_ms_per_call"],
+           "plain_launches": plain_prof["kernel_launches_per_call"],
+           "library_ms": library_ms, "library": "torch.nn.LSTM (cuDNN), "
+           "float32, forward and backward, eager",
+           "barrier_probe_ms": probe_ms, "floor_ms": floor_ms,
+           "share_of_floor": floor_ms / prof["device_ms_per_call"],
+           "checks": checks,
+           "tolerance": "out/c/h atol {}; gradients {} of their largest "
+           "element, {} under bf16 compute".format(
+               LSTM_OUT_ATOL, LSTM_GRAD_RTOL, LSTM_BF16_GRAD_RTOL)}
+    emit("lstm_kernel", **out)
+    print("lstm {}: {} ms graphed ({} ms on the device: forward {}, backward"
+          " {}, rest {}), plain loop {} ms ({} kernels), cuDNN {} ms, floor "
+          "{} ms".format(out["shape"], kernel_ms, out["device_ms"],
+                         split["forward"], split["backward"], split["rest"],
+                         plain_ms, out["plain_launches"], library_ms,
+                         floor_ms), flush=True)
+    return out
 
 
 def phase_serve(workdir, device="cuda"):
@@ -1868,6 +2067,13 @@ class CpuSides:
 
 
 CPU_SIDES = None  # the worker's ``CpuSides`` in a whole run of main()
+# LSTM kernel launches by path (network or phase) in a run of main()
+LSTM_LAUNCHES = {}
+# the paths whose networks hold an LSTM outside vmap: each must launch the
+# LSTM kernels on the card
+LSTM_PATHS = ("config4", "config4_unshuffled", "lstm_only",
+              "lstm_only_with_packing", "double_lstm", "cnn_to_nested_lstm",
+              "siamese_cnn_lstm", "siamese_pretrained_lstm")
 
 
 def softmax_probs(logits):
@@ -3644,12 +3850,19 @@ def nested_real_size(workdir, device, name):
             ms = cuda_ms(runner.train, warmup=1, reps=3)
             prof = device_breakdown(runner.train, reps=1, top=4)
             loss = float(runner.train())
+            if name == "cnn_to_nested_lstm" and \
+                    prof["lstm_launches_per_call"] != 2:
+                raise AssertionError(
+                    "real-size step: {} LSTM kernel launches, not the "
+                    "forward and the backward".format(
+                        prof["lstm_launches_per_call"]))
             reading = {
                 "windows": w, "bucket": size,
                 "breaths": size * trainer.n_sub_batches,
                 "compute_dtype": "bfloat16", "ms": ms,
                 "device_ms": prof["device_ms_per_call"],
                 "launches": prof["kernel_launches_per_call"],
+                "lstm_launches": prof["lstm_launches_per_call"],
                 "device_idle_share": 1.0 - prof["device_ms_per_call"] / ms,
                 "top": prof["top"],
                 "runner_build_seconds": build_seconds,
@@ -4893,13 +5106,17 @@ def counted_phase(phase, names, path, workdir, device):
     launches counted from 0 just before it and read just after: one JSON
     line a network.  Returns {network: launches}."""
     import deepards_tpu_torch.ops.dtw as dtw_ops
+    import deepards_tpu_torch.ops.lstm as lstm_ops
 
     launches, failed = {}, []
     for name in names:
         dtw_ops.launches = 0
+        lstm_before = lstm_ops.launches
         fields, failures = path(workdir, name, device)
         launches[name] = dtw_ops.launches
-        emit(phase, network=name, dtw_launches=launches[name], **fields)
+        LSTM_LAUNCHES[name] = lstm_ops.launches - lstm_before
+        emit(phase, network=name, dtw_launches=launches[name],
+             lstm_launches=LSTM_LAUNCHES[name], **fields)
         failed += failures
     if failed:
         raise AssertionError("{}: {}".format(phase, "; ".join(failed)))
@@ -6589,6 +6806,7 @@ def run_phases(phases):
     import torch
 
     import deepards_tpu_torch.ops.dtw as dtw_ops
+    import deepards_tpu_torch.ops.lstm as lstm_ops
     from deepards_tpu_torch.ops.build import BUILD_DIR
 
     # each phase's seconds on the host's clock, printed before the kernels
@@ -6603,7 +6821,7 @@ def run_phases(phases):
         try:
             return fn(*args, **kwargs)
         except Exception as e:  # noqa: BLE001 - recorded, raised at the end
-            if phase in ("env", "build", "kernel"):
+            if phase in ("env", "build", "kernel", "lstm"):
                 raise
             import traceback
 
@@ -6616,14 +6834,18 @@ def run_phases(phases):
 
     def counted(phase, fn, *args, **kwargs):
         """A path's DTW launches: the count from 0 just before it, read
-        just after."""
+        just after (its LSTM launches into LSTM_LAUNCHES)."""
         dtw_ops.launches = 0
+        lstm_before = lstm_ops.launches
         timed(phase, fn, *args, **kwargs)
+        LSTM_LAUNCHES[phase] = (LSTM_LAUNCHES.get(phase, 0)
+                                + lstm_ops.launches - lstm_before)
         return dtw_ops.launches
 
     smi = timed("env", phase_env)
     timed("build", phase_build)
     dtw_stats = timed("kernel", phase_kernel)
+    lstm_stats = timed("lstm", phase_lstm)
 
     # the main path
     by_path = {}
@@ -6699,6 +6921,11 @@ def run_phases(phases):
     if any(training.values()):
         failures["training_paths"] = "a training path launched the dtw " \
             "kernel: {}".format(training)
+    no_lstm = [p for p in LSTM_PATHS if LSTM_LAUNCHES.get(p) == 0]
+    emit("lstm_kernel_launches", by_path=LSTM_LAUNCHES)
+    if no_lstm:
+        failures["lstm_paths"] = "LSTM networks that never launched the " \
+            "LSTM kernels: {}".format(no_lstm)
 
     # the DTW heterogeneity paths: the sweep's counts from 0 just before
     # it (inside the phase, whose checks launch the kernel too), the CLI
@@ -6737,6 +6964,20 @@ def run_phases(phases):
         "bound_ms": dtw_stats["bound_ms"],
         "bound_by": dtw_stats["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "lstm",
+        "route": "cuda",
+        "source": "deepards_tpu_torch/ops/csrc/lstm.cu",
+        "replaces": None,
+        "launches": lstm_ops.launches,
+        "launches_by_path": LSTM_LAUNCHES,
+        "max_gap": max(c["max_gap"] for c in lstm_stats["checks"].values()),
+        "ms": lstm_stats["ms"],
+        "device_ms": lstm_stats["device_ms"],
+        "plain_ms": lstm_stats["plain_ms"],
+        "floor_ms": lstm_stats["floor_ms"],
+        "bound_by": "latency: 2 x 2,048 cluster barriers",
+        "library_ms": lstm_stats["library_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

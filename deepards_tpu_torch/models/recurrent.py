@@ -12,10 +12,13 @@ window's backbone features (one (B*S)-row call) and run an ``LSTM`` or a
 computes, with its parameters: per gate (i, f, g, o) an input kernel
 without bias and a hidden kernel with a bias, held as ``nn.Linear``s in
 ``input`` and ``hidden``.  The input projection of all S windows is one
-matmul; then S steps of ``h @ W_h + b``.  Precision follows flax's
-``promote_dtype``: under bfloat16 compute the input projection is bfloat16
-x bfloat16, while the carry starts as float32 zeros, so the recurrent
-projection, the gates, the carry and the outputs are float32.
+matmul; then S steps of ``h @ W_h + b`` (``ops/lstm.py`` ``recurrence``:
+on the card the persistent kernels of ``ops/csrc/lstm.cu``, on the CPU
+and under a ``torch.func`` transform a loop of stock ops).  Precision
+follows flax's ``promote_dtype``: under bfloat16 compute the input
+projection is bfloat16 x bfloat16, while the carry starts as float32
+zeros, so the recurrent projection, the gates, the carry and the outputs
+are float32.
 
 ``SimpleRNN`` is flax's ``SimpleCell`` under ``nn.RNN`` (the nested RNN's
 cell): tanh(x W_i + b_i + h W_h), the bias on the input Dense and none
@@ -31,6 +34,7 @@ from deepards_tpu_torch.models.heads import (
 )
 from deepards_tpu_torch.models.layers import dense_init, promoted_linear
 from deepards_tpu_torch.models.transformer import Transformer
+from deepards_tpu_torch.ops import lstm as lstm_ops
 
 GATES = ("i", "f", "g", "o")
 SEQ_LEN = 224  # samples a window holds: the LSTM-only networks' Dense widths
@@ -74,14 +78,7 @@ class LSTM(nn.Module):
         h_dtype = torch.promote_types(carry[1].dtype, w_h.dtype)
         c, h = (t.to(h_dtype) for t in carry)
         w_h, b_h = w_h.to(h_dtype), b_h.to(h_dtype)
-        outs = []
-        for s in range(x.shape[1]):
-            gates = F.linear(h, w_h, b_h) + xi[:, s]
-            i, f, g, o = gates.chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            outs.append(h)
-        return (c, h), torch.stack(outs, dim=1)
+        return lstm_ops.recurrence(xi, w_h, b_h, c, h)
 
 
 class SimpleRNN(nn.Module):

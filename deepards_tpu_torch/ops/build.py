@@ -20,7 +20,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("dtw",)
+KERNELS = ("dtw", "lstm")
 
 _loaded = {}
 _lock = threading.Lock()

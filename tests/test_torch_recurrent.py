@@ -29,8 +29,10 @@ from deepards_tpu.models import recurrent as jrecurrent
 from deepards_tpu.models import resnet1d as jresnet
 from deepards_tpu_torch.cli.serve import InferenceEngine
 from deepards_tpu_torch.models import densenet1d, heads, recurrent, resnet1d
+from deepards_tpu_torch.ops import lstm as lstm_ops
 from deepards_tpu_torch.train import checkpoint
 from deepards_tpu_torch.transplant import transplant
+from deepards_tpu_torch.utils import profiling
 
 # parallel test workers share the cores: one torch thread each
 torch.set_num_threads(1)
@@ -263,3 +265,80 @@ def test_cnn_lstm_served_as_its_trainer_evaluates(tmp_path):
     np.testing.assert_array_equal(engine.predict(x), engine.predict(x))
     with pytest.raises(ValueError, match="regressor"):
         InferenceEngine(path, network="cnn_regressor", device="cpu")
+
+
+def test_lstm_takes_the_loop_on_the_cpu_and_under_vmap():
+    """On the CPU, and under ``torch.func.vmap`` (which a hand kernel has
+    no rule for), the forward runs the loop and counts its steps there."""
+    lstm = recurrent.LSTM(F, H).reset_parameters(
+        torch.Generator().manual_seed(6))
+    x = torch.from_numpy(windows(6, (B, S, F)))
+    profiling.reset_totals()
+    (_, h), out = lstm(x)
+    counters = profiling.totals()["counters"]
+    assert counters == {"lstm.loop_steps": S}
+    assert lstm_ops.kernel_plan(x, torch.zeros(4 * H, H)) is None
+    seen = []
+
+    def one(v):
+        seen.append(lstm_ops.transform_active())
+        return lstm(v[None])[1][0]
+
+    stacked = torch.func.vmap(one)(x)
+    assert seen == [True] and not lstm_ops.transform_active()
+    assert profiling.totals()["counters"] == {"lstm.loop_steps": 2 * S}
+    torch.testing.assert_close(stacked, out, atol=1e-6, rtol=0)
+    assert torch.equal(out[:, -1], h)
+
+
+# (batch, hidden, carry type) of each LSTM user -> (cluster, parts, k,
+# rows, threads, blocks) on an H100's 132 SMs
+PLANS = {
+    "nested": ((1, 128, torch.float32), (4, 4, 32, 1, 512, 4)),
+    "cnn_lstm": ((16, 16, torch.float32), (1, 1, 16, 1, 64, 16)),
+    "cnn_lstm_metadata": ((16, 25, torch.float32), (1, 2, 16, 1, 224, 16)),
+    "lstm_only": ((320, 16, torch.float32), (1, 1, 16, 3, 192, 107)),
+    "float64": ((2, 128, torch.float64), (8, 8, 16, 1, 512, 16)),
+}
+
+
+@pytest.mark.parametrize("user", sorted(PLANS))
+def test_lstm_plan_at_each_users_shape(user):
+    (batch, hidden, dtype), want = PLANS[user]
+    plan = lstm_ops.lstm_plan(batch, hidden, dtype)
+    assert (plan.cluster, plan.parts, plan.k, plan.rows, plan.threads,
+            plan.blocks) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lstm_plan_keeps_the_kernels_limits(dtype):
+    """Every plan fits the kernels: a block's weights within 64 KB and K
+    a thread, its batch rows within 512 threads and 48 KB of shared
+    memory, every batch row in some cluster; a W_h too large for 8
+    blocks, or another carry type, gets no plan."""
+    elem = torch.finfo(dtype).bits // 8
+    for hidden in (1, 3, 16, 25, 64, 100, 128, 181):
+        for batch in (1, 2, 16, 133, 320, 5000):
+            plan = lstm_ops.lstm_plan(batch, hidden, dtype)
+            if plan is None:  # no cluster of 8 takes it
+                units = -(-hidden // 8)
+                assert 4 * hidden * units * elem > 64 * 1024 or all(
+                    4 * units * p > 512
+                    or -(-hidden // p) > max(lstm_ops.KS[dtype])
+                    for p in lstm_ops.PARTS)
+                continue
+            units = -(-hidden // plan.cluster)
+            assert units == plan.units
+            assert 4 * units * hidden * elem <= lstm_ops.WEIGHT_BYTES
+            assert plan.k in lstm_ops.KS[dtype]
+            assert plan.k * plan.parts >= hidden
+            assert plan.rows * 4 * units * plan.parts <= plan.threads <= 512
+            assert plan.threads % 32 == 0
+            # the backward's two buffers of 4 K P gate gradients a row
+            assert 8 * plan.rows * plan.k * plan.parts * elem <= 48 * 1024
+            assert plan.blocks // plan.cluster * plan.rows >= batch
+            smaller = [c for c in lstm_ops.CLUSTERS if c < plan.cluster]
+            assert all(4 * -(-hidden // c) * hidden * elem
+                       > lstm_ops.WEIGHT_BYTES for c in smaller)
+    assert lstm_ops.lstm_plan(16, 16, torch.bfloat16) is None
+    assert lstm_ops.lstm_plan(1, 200, torch.float32) is None
