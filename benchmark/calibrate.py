@@ -15,8 +15,8 @@ of the reference put in the program's place:
   of what the configuration's own precision reads;
 - ``half``: half of each batch (or of a patient's windows) left out, the
   loss's mean taken over the rest;
-- ``altered`` (a test cell): the program's predictions of one step's
-  windows flipped where they are produced.
+- ``altered`` (a test cell): the program's predictions of the first
+  step's windows flipped where they are produced.
 
 A state left unchanged reads 1 on a train cell's ``change_gap`` by its
 definition and needs no run.  Every seed runs in this one process.
@@ -31,10 +31,10 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def altered(answers, batch):
-    """The program's answers with the first step's predictions flipped."""
+def altered(answers, rows):
+    """The program's answers with the predictions of ``rows`` flipped."""
     out = dict(answers, preds=dict(answers["preds"]))
-    for row in sorted(out["preds"])[:batch]:
+    for row in rows:
         out["preds"][row] = 1 - out["preds"][row]
     return out
 
@@ -75,7 +75,7 @@ def readings(workload, seed, program=True, controls=False, device="cuda",
             out.append((kind, driver.numbers(other, ref)))
         if run.traffic["epoch"] == "test":
             out.append(("altered", driver.numbers(
-                altered(answers, driver.batch), ref)))
+                altered(answers, driver.first_step_rows()), ref)))
     return out
 
 

@@ -20,9 +20,10 @@ call and feed):
   float8 control does to those leaves, a change of direction more than of
   size.  ``head_free_diff``: the same over the elements the reference
   leaves under the clamp alone, of the leaves with ``FREE_MIN`` of them or
-  more (0 where none has): the clamp saturates most of a cnn_linear
-  head's first gradient, and the elements it saturates agree whatever
-  the precision.  ``head_free_n`` counts those elements.
+  more (0 where none has): the clamp saturates most of the first
+  gradient of a Linear head over a window's S x 128 features, and the
+  elements it saturates agree whatever the precision.  ``head_free_n``
+  counts those elements.
 
 The worst leaf of a bfloat16 run reads 0.06-0.23 on every seed, as the
 reference rounded to bfloat16 where the run rounds does: the norms'
@@ -41,7 +42,18 @@ The test epoch (every window of the window's first epoch):
   vote of the reference's own predictions, is reported beside it: it
   averages a patient's ~1,300 windows, so the float8 control moves it
   less than three times as far as a sound run does;
-- ``test_loss_gap``: the largest relative gap of a step's test loss.
+- ``test_loss_gap``: the largest relative gap of a step's test loss;
+- ``logit_gap``, where the program's answers hold its logits (a nested
+  test epoch's record keeps them): the widest gap between a window's
+  logit and the reference's.  A nested network's windows lean to one
+  class by a wide margin, so no rounding flips a prediction and
+  ``pred_gap`` reads 0 on sound runs and on the control alike;
+- ``own_loss_gap``, where the answers hold the logits: the largest
+  relative gap of a step's recorded test loss from the BCE, in float64,
+  of the logits the program recorded for that step's windows against
+  their targets.  Both sides read the same float32 logits, so a sound run
+  reads the loss's rounding, while a loss taken over part of the windows
+  moves the mean.  ``logit_gap`` holds those logits to the reference.
 
 Every cell (what the window ran, against the epochs the reference works
 out): ``windows_gap``, the real windows the program's steps held (the
@@ -131,7 +143,8 @@ def train_numbers(prog, ref):
 
 def eval_numbers(prog, ref_logits, patient_of_row, ref_losses):
     """{name: value} of a test epoch's answers ``prog`` ({"preds": {row:
-    class}, "votes": {patient: share}, "losses": [...]}) against the
+    class}, "votes": {patient: share}, "losses": [...]}, and optionally
+    "logits": {row: (2,) array}) against the
     reference's logits ``ref_logits`` ({row: (2,) array}) and its step
     losses."""
     gaps, ref_class = [], {}
@@ -143,12 +156,40 @@ def eval_numbers(prog, ref_logits, patient_of_row, ref_losses):
     own = votes({r: prog["preds"].get(r, -1) for r in ref_class},
                 patient_of_row)
     theirs = votes(ref_class, patient_of_row)
-    return {"pred_gap": max(gaps),
-            "vote_gap": max(abs(prog["votes"].get(pt, math.inf) - v)
-                            for pt, v in own.items()),
-            "vote_ref_gap": max(abs(prog["votes"].get(pt, math.inf) - v)
-                                for pt, v in theirs.items()),
-            "test_loss_gap": _rel_gaps(prog["losses"], ref_losses)}
+    out = {"pred_gap": max(gaps),
+           "vote_gap": max(abs(prog["votes"].get(pt, math.inf) - v)
+                           for pt, v in own.items()),
+           "vote_ref_gap": max(abs(prog["votes"].get(pt, math.inf) - v)
+                               for pt, v in theirs.items()),
+           "test_loss_gap": _rel_gaps(prog["losses"], ref_losses)}
+    if "logits" in prog:
+        out["logit_gap"] = max(
+            float(np.max(np.abs(prog["logits"][row] - logits)))
+            if row in prog["logits"] else math.inf
+            for row, logits in ref_logits.items())
+    return out
+
+
+def own_loss_gap(prog, steps, class_of_row):
+    """The largest relative gap of a step's loss in ``prog["losses"]``
+    from the BCE of the logits ``prog["logits"]`` of its rows ``steps[k]``
+    against their one-hot targets: each row's mean over the two classes,
+    then the mean over the rows."""
+    if len(prog["losses"]) != len(steps):
+        return math.inf
+    gaps = []
+    for loss, rows in zip(prog["losses"], steps):
+        if any(r not in prog["logits"] for r in rows):
+            return math.inf
+        x = np.asarray([prog["logits"][r] for r in rows], np.float64)
+        t = np.eye(2)[np.asarray(class_of_row)[rows]]
+        bce = np.maximum(x, 0) - x * t + np.log1p(np.exp(-np.abs(x)))
+        own = float(bce.mean())
+        gap = abs(float(loss) - own) / max(abs(own), 1e-30)
+        if not math.isfinite(gap):
+            return math.inf
+        gaps.append(gap)
+    return max(gaps, default=0.0)
 
 
 def count_numbers(counters, expected):

@@ -1,4 +1,5 @@
-"""The standard trainer's device-cache epochs (``Trainer``, cnn_linear).
+"""The standard trainer's device-cache epochs (``Trainer``: a batch of
+samples a step).
 
 Set-up builds the fold as ``Trainer.run_fold`` does (the fold's state,
 its train and eval steps, its ``StepRunner`` with the graphs captured,
@@ -19,7 +20,7 @@ from deepards_tpu_torch.train.loop import Trainer
 from deepards_tpu_torch.train.steps import make_train_step
 
 from benchmark import checks, program, trace
-from benchmark.reference import folds, model, runs
+from benchmark.reference import folds, runs
 
 
 class Driver:
@@ -31,6 +32,7 @@ class Driver:
         if self.kind not in ("train", "test"):
             raise ValueError("unknown epoch kind: {}".format(self.kind))
         self.fold = run.traffic["fold"]
+        self.network = run.config["flags"]["network"]
         self.snapshot = {}
 
     # -- set-up ---------------------------------------------------------
@@ -134,6 +136,20 @@ class Driver:
         n = self.run.cell["check"]["steps"]
         return ids[:n], masks[:n]
 
+    def test_steps(self, leave_out_half=False):
+        """(ids, masks) of the window's first test epoch as the reference
+        works it out: the fold's test rows in order, in batches;
+        ``leave_out_half``: the second half of each batch masked out."""
+        ids, masks = folds.batches(self.epoch_rows(), self.batch)
+        if leave_out_half:
+            masks[:, self.batch - self.batch // 2:] = 0.0
+        return ids, masks
+
+    def first_step_rows(self):
+        """The rows the first test step scores."""
+        ids, masks = self.test_steps()
+        return ids[0][masks[0] > 0].tolist()
+
     def answers(self):
         """What the check compares, read from the program once the
         window has closed."""
@@ -143,7 +159,7 @@ class Driver:
                                        self.snapshot.get("momentum"),
                                        self.snapshot.get("params"))
         results = self.trainer.results
-        epoch_steps = -(-len(self.epoch_rows()) // self.batch)
+        epoch_steps = self.expected(1)[1]
         return {
             "preds": {r["index"]: r["pred"]
                       for r in results.all_pred_to_hour if r["epoch"] == 1},
@@ -161,10 +177,13 @@ class Driver:
         ``leave_out_half`` make it a control or a fault."""
         if self.kind == "train":
             ids, masks = self.check_steps()
-            return train_reference(self.run, "cnn_linear", list(ids),
+            return train_reference(self.run, self.network, list(ids),
                                    self.batch * self.run.n_sub_batches,
                                    quant, leave_out_half, list(masks))
-        return test_reference(self.run, self.batch, quant, leave_out_half)
+        ids, masks = self.test_steps(leave_out_half)
+        return test_reference(self.run, self.network, list(ids), list(masks),
+                              self.batch * self.run.n_sub_batches,
+                              list(masks > 0), quant)
 
     def numbers(self, answers, ref):
         if self.kind == "train":
@@ -231,29 +250,23 @@ def train_reference(run, network, steps, drawn_rows, quant=None,
         quant=quant, leave_out_half=leave_out_half, masks=masks)
 
 
-def test_reference(run, batch, quant=None, leave_out_half=False):
-    """The reference over the fold's first test epoch: {"logits": {row:
-    (2,) logits}, "losses": each step's loss}."""
-    fold = run.traffic["fold"]
-    mu, std = fold_scaling(run, fold)
-    _, test_pts = folds.split(run.patient_of_row, run.class_of_row,
-                              run.conf.kfolds, fold)
-    rows = folds.rows_of(run.patient_of_row, test_pts)
-    ids, masks = folds.batches(rows, batch)
-    if leave_out_half:
-        masks[:, batch - batch // 2:] = 0.0
-    data, targets, where = _upload(run, rows)
-    logits = runs.test_logits(run.weights, data, where[ids], masks, mu, std,
-                              run.seeds["dropout"], quant)
-    losses = [float(model.bce(
-        logits[k * batch:(k + 1) * batch], targets[where[ids[k]]],
-        torch.from_numpy(masks[k]).to(run.device)))
-        for k in range(len(ids))]
-    logits = logits.cpu().numpy()
-    keep = masks.reshape(-1) > 0
-    return {"logits": {int(r): logits[k]
-                       for k, r in enumerate(ids.reshape(-1)) if keep[k]},
-            "losses": losses}
+def test_reference(run, network, steps, masks, drawn_rows, keep,
+                   quant=None):
+    """The reference over the fold's first test epoch, whose step k
+    scores the cohort rows ``steps[k]`` with the 0/1 row mask
+    ``masks[k]``: {"logits": {row: (2,) logits of the rows ``keep[k]``
+    marks}, "losses": each step's loss}."""
+    mu, std = fold_scaling(run, run.traffic["fold"])
+    data, targets, where = _upload(run, [r for s in steps for r in s])
+    logits, losses = runs.test_logits(
+        network, run.weights, data, targets, [where[s] for s in steps], masks,
+        mu, std, run.seeds["dropout"], drawn_rows, quant)
+    out = {}
+    for rows, step_logits, step_keep in zip(steps, logits, keep):
+        for r, v, k in zip(rows, step_logits.cpu().numpy(), step_keep):
+            if k:
+                out[int(r)] = v
+    return {"logits": out, "losses": losses}
 
 
 def test_answers(ref, patient_of_row):

@@ -5,7 +5,8 @@ Everything a cell needs is found by name: its entry in
 ``BENCHMARK.json`` (config, traffic), ``workloads/<cell>.json`` (the
 driver, the check's steps and limits, the traced stretch),
 ``configs/<config>.json`` (the program's flags), ``traffic/<traffic>.json``
-(the cohort), ``drivers/<driver>.py`` and, for each metric the cell
+(the cohort), ``drivers/<driver>.py``, the network's plain reference
+``reference/networks/<flags.network>.py`` and, for each metric the cell
 reports, ``metrics/<metric, up to its first dot>.py``, whose ``read(run)``
 returns the value or None when it finds nothing to read.
 """

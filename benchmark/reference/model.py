@@ -1,17 +1,15 @@
-"""Plain float32 reference of the measured networks and their train step.
+"""The shared pieces of the plain float32 reference: the backbone, its
+norms and dropout, the loss and the train step.  Each network's own
+leaves and forward past the backbone are a module of
+``reference/networks``, found by the network's name.
 
 densenet18-1D (DenseNet-BC: growth 32, blocks (2, 2, 2, 2), 64 initial
 features, 1x1 bottlenecks of 4 x 32 channels, dropout 0.2 after each dense
-layer, batch-statistic normalization throughout) under two heads:
-
-- ``cnn_linear``: the S windows of a sample through the backbone as one
-  batch of B*S rows, their 128 features each flattened to one Linear of
-  S*128 -> 2;
-- ``cnn_to_nested_lstm``: one patient's W windows, each normalized over
-  its own S rows, median-pooled over its S breaths, then an LSTM of 128
-  units over the W windows (flax's OptimizedLSTMCell: gates i, f, g, o,
-  input kernels without bias, hidden kernels with one), then a Linear of
-  128 -> 2 on every window.
+layer, batch-statistic normalization throughout) turns each breath of a
+window into 128 features.  ``features`` runs it over a step: a batch of
+samples, whose B*S breaths are normalized together (a 0/1 row mask drops
+pad samples from the statistics), or one patient's windows, each
+normalized over its own S breaths.
 
 The loss is BCE with logits, averaged over the two outputs of a row and
 then over the rows that a 0/1 mask keeps.  The step clamps every gradient
@@ -36,12 +34,11 @@ INIT_FEATURES = 64
 BN_SIZE = 4
 DROP_RATE = 0.2
 EPS = 1e-5
-LSTM_UNITS = 128
-GATES = ("i", "f", "g", "o")
 WINDOW = 224  # samples a breath holds
+BACKBONE = "breath_block."  # the names of the backbone's leaves
 
 
-def _ident(x):
+def identity(x):
     return x
 
 
@@ -55,58 +52,48 @@ def n_features():
     return n
 
 
-def param_spec(network, n_sub_batches, in_channels=1):
-    """[(name, shape, init)] of every parameter.  ``init`` is ("normal",
-    std), ("ones",), ("zeros",) or ("orthogonal",)."""
-    spec = []
+def conv_spec(name, cout, cin, k):
+    """A convolution's kernel: normal, std sqrt(2 / (k * out))."""
+    return [(name, (cout, cin, k), ("normal", math.sqrt(2.0 / (k * cout))))]
 
-    def conv(name, cout, cin, k):
-        spec.append((name, (cout, cin, k),
-                     ("normal", math.sqrt(2.0 / (k * cout)))))
 
-    def norm(name, c):
-        spec.append((name + ".weight", (c,), ("ones",)))
-        spec.append((name + ".bias", (c,), ("zeros",)))
+def norm_spec(name, c):
+    """A norm's scale (ones) and shift (zeros)."""
+    return [(name + ".weight", (c,), ("ones",)),
+            (name + ".bias", (c,), ("zeros",))]
 
-    def dense(name, cout, cin, bias=True):
-        spec.append((name + ".weight", (cout, cin),
-                     ("normal", 1.0 / math.sqrt(cin))))
-        if bias:
-            spec.append((name + ".bias", (cout,), ("zeros",)))
 
-    bb = "breath_block."
-    conv(bb + "conv0.weight", INIT_FEATURES, in_channels, 7)
-    norm(bb + "norm0", INIT_FEATURES)
+def dense_spec(name, cout, cin, bias=True):
+    """A Linear's kernel (normal, std 1 / sqrt(fan in)) and bias (zeros)."""
+    spec = [(name + ".weight", (cout, cin), ("normal", 1.0 / math.sqrt(cin)))]
+    if bias:
+        spec.append((name + ".bias", (cout,), ("zeros",)))
+    return spec
+
+
+def backbone_spec(in_channels=1):
+    """[(name, shape, init)] of the backbone's leaves, in the order a
+    network's ``param_spec`` lists them first."""
+    bb = BACKBONE
+    spec = conv_spec(bb + "conv0.weight", INIT_FEATURES, in_channels, 7)
+    spec += norm_spec(bb + "norm0", INIT_FEATURES)
     n, layer = INIT_FEATURES, 0
     for i, layers in enumerate(BLOCKS):
         for _ in range(layers):
             pre = "{}dense_layers.{}.".format(bb, layer)
-            norm(pre + "norm1", n)
-            conv(pre + "conv1.weight", BN_SIZE * GROWTH, n, 1)
-            norm(pre + "norm2", BN_SIZE * GROWTH)
-            conv(pre + "conv2.weight", GROWTH, BN_SIZE * GROWTH, 3)
+            spec += norm_spec(pre + "norm1", n)
+            spec += conv_spec(pre + "conv1.weight", BN_SIZE * GROWTH, n, 1)
+            spec += norm_spec(pre + "norm2", BN_SIZE * GROWTH)
+            spec += conv_spec(pre + "conv2.weight", GROWTH,
+                              BN_SIZE * GROWTH, 3)
             n += GROWTH
             layer += 1
         if i != len(BLOCKS) - 1:
             pre = "{}transitions.{}.".format(bb, i)
-            norm(pre + "norm", n)
-            conv(pre + "conv.weight", n // 2, n, 1)
+            spec += norm_spec(pre + "norm", n)
+            spec += conv_spec(pre + "conv.weight", n // 2, n, 1)
             n //= 2
-    norm(bb + "norm5", n)
-    if network == "cnn_linear":
-        dense("head", 2, n_sub_batches * n)
-    elif network == "cnn_to_nested_lstm":
-        for g in GATES:
-            dense("lstm.input." + g, LSTM_UNITS, n, bias=False)
-        for g in GATES:
-            spec.append(("lstm.hidden.{}.weight".format(g),
-                         (LSTM_UNITS, LSTM_UNITS), ("orthogonal",)))
-            spec.append(("lstm.hidden.{}.bias".format(g), (LSTM_UNITS,),
-                         ("zeros",)))
-        dense("head", 2, LSTM_UNITS)
-    else:
-        raise ValueError("no reference for network {}".format(network))
-    return spec
+    return spec + norm_spec(bb + "norm5", n)
 
 
 def dropout_shapes(rows, length=WINDOW):
@@ -150,14 +137,14 @@ def batch_norm(x, weight, bias, groups=1, row_mask=None):
 
 def backbone(p, x, masks=None, groups=1, row_mask=None, quant=None):
     """(N, C, 224) windows' breaths -> (N, 128) features."""
-    q = quant or _ident
-    w = {k: q(v) for k, v in p.items() if k.startswith("breath_block.")}
+    q = quant or identity
+    w = {k: q(v) for k, v in p.items() if k.startswith(BACKBONE)}
 
     def norm_relu(h, name):
         return q(F.relu(batch_norm(h, w[name + ".weight"], w[name + ".bias"],
                                    groups, row_mask)))
 
-    bb = "breath_block."
+    bb = BACKBONE
     h = q(F.conv1d(q(x), w[bb + "conv0.weight"], stride=2, padding=3))
     h = norm_relu(h, bb + "norm0")
     h = F.max_pool1d(F.pad(h, (1, 1), value=float("-inf")), 3, 2)
@@ -193,49 +180,25 @@ def bce(logits, target, weights=None):
     return (per_row * weights).sum() / torch.clamp(weights.sum(), min=1.0)
 
 
-def cnn_linear_logits(p, x, row_mask=None, masks=None, quant=None):
-    """(B, S, C, L) normalized windows -> (B, 2) logits; ``row_mask`` (B,)
-    drops pad samples from the norms' statistics."""
-    b, s, c, length = x.shape
+def features(p, x, per_window, masks=None, row_mask=None, quant=None):
+    """(N, S, C, L) normalized windows -> (N, S, 128) per-breath
+    features: the N*S breaths through the backbone, normalized each
+    window on its own (``per_window``: a patient's windows) or all
+    together, with ``row_mask`` (N,) dropping pad samples from the
+    statistics."""
+    n, s, c, length = x.shape
     rows = None if row_mask is None else row_mask.repeat_interleave(s)
-    feats = backbone(p, x.reshape(b * s, c, length), masks, 1, rows, quant)
-    q = quant or _ident
-    return q(F.linear(feats.reshape(b, -1), q(p["head.weight"]),
-                      q(p["head.bias"])))
+    feats = backbone(p, x.reshape(n * s, c, length), masks,
+                     n if per_window else 1, rows, quant)
+    return feats.reshape(n, s, -1)
 
 
-def window_medians(feats, s):
-    """(W*S, F) -> (W, F): the median over each window's S breaths, the
+def window_medians(feats):
+    """(W, S, F) -> (W, F): the median over each window's S breaths, the
     mean of the two middle values at an even S."""
-    srt = torch.sort(feats.reshape(-1, s, feats.shape[-1]), dim=1).values
+    s = feats.shape[1]
+    srt = torch.sort(feats, dim=1).values
     return (srt[:, (s - 1) // 2] + srt[:, s // 2]) * 0.5
-
-
-def nested_medians(p, x, masks=None, quant=None):
-    """(W, S, C, L) normalized windows -> (W, 128) window medians, each
-    window normalized over its own S rows."""
-    w, s, c, length = x.shape
-    feats = backbone(p, x.reshape(w * s, c, length), masks, w, None, quant)
-    return window_medians(feats, s)
-
-
-def lstm_head(p, medians, quant=None):
-    """(W, 128) window medians -> (W, 2) logits: the LSTM over the
-    windows in order from a zero carry, then the head on each window."""
-    q = quant or _ident
-    w_i = torch.cat([q(p["lstm.input.{}.weight".format(g)]) for g in GATES])
-    w_h = torch.cat([q(p["lstm.hidden.{}.weight".format(g)]) for g in GATES])
-    b_h = torch.cat([q(p["lstm.hidden.{}.bias".format(g)]) for g in GATES])
-    xi = q(medians @ w_i.t())
-    h = c = medians.new_zeros(LSTM_UNITS)
-    outs = []
-    for t in range(medians.shape[0]):
-        i, f, g, o = (xi[t] + h @ w_h.t() + b_h).chunk(4)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        outs.append(h)
-    out = torch.stack(outs)
-    return q(F.linear(out, q(p["head.weight"]), q(p["head.bias"])))
 
 
 def sgd_step(params, grads, momentum, lr, weight_decay, clip, mu=0.9):

@@ -40,7 +40,8 @@ def test_a_traced_run_reports_its_layers(tiny, cell):
     # the CPU has no device trace and no peak: those metrics stay silent
     silent = {n for n in want if n.split(".")[0] in (
         "step_device_ms", "launches_per_step", "device_idle_share",
-        "peak_memory_gb", "mfu")}
+        "peak_memory_gb", "mfu", "step_gap_ms", "step_gap_share",
+        "stage_idle_ms_per_step", "launch_idle_ms_per_step")}
     assert set(out["metrics"]) == want - silent
 
 
@@ -75,7 +76,8 @@ def altered_answers(monkeypatch):
 
 
 def skipped_step(monkeypatch):
-    """Each train epoch leaves out its last step."""
+    """Each device-cache train epoch, and each nested epoch, leaves out
+    its last step."""
     device_steps = loop.Trainer._device_steps
     patient_steps = NestedTrainer.patient_steps
 
@@ -85,11 +87,15 @@ def skipped_step(monkeypatch):
         return device_steps(self, runner, dataset, ids, masks, train)
 
     def fewer_patients(self, runners, dataset, groups, train):
-        return patient_steps(self, runners, dataset,
-                             groups[:-1] if train else groups, train)
+        return patient_steps(self, runners, dataset, groups[:-1], train)
 
+    def record_fewer(self, losses, outs, groups, *rest):
+        return record(self, losses, outs, groups[:len(outs)], *rest)
+
+    record = NestedTrainer._record_nested_eval
     monkeypatch.setattr(loop.Trainer, "_device_steps", fewer)
     monkeypatch.setattr(NestedTrainer, "patient_steps", fewer_patients)
+    monkeypatch.setattr(NestedTrainer, "_record_nested_eval", record_fewer)
 
 
 def pad_rows_real(monkeypatch):
@@ -140,7 +146,11 @@ FAULTS = [("cnn_linear_train", unchanged_state),
           ("cnn_linear_eval", altered_answers),
           ("cnn_linear_eval", half_the_batch),
           ("cnn_linear_eval", pad_rows_real),
-          ("cnn_linear_eval", halved_mask)]
+          ("cnn_linear_eval", halved_mask),
+          ("nested_lstm_eval", altered_answers),
+          ("nested_lstm_eval", half_the_batch),
+          ("nested_lstm_eval", halved_mask),
+          ("nested_lstm_eval", skipped_step)]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)

@@ -63,7 +63,8 @@ def test_cell_files_parse(cell):
     assert set(spec["check"]["limits"]) <= {
         "loss_gap", "first_grad_gap", "change_gap", "head_grad_diff",
         "head_free_diff", "pred_gap", "vote_gap",
-        "test_loss_gap", "windows_gap", "steps_gap"}
+        "test_loss_gap", "logit_gap", "own_loss_gap", "windows_gap",
+        "steps_gap"}
     assert {"windows_gap", "steps_gap"} <= set(spec["check"]["limits"])
     assert traffic["epoch"] in ("train", "test")
     by_name = {c["name"]: c for c in MANIFEST["configs"]}

@@ -7,7 +7,7 @@ import torch
 
 import bench_tiny  # noqa: F401  (puts the repository on the path)
 from benchmark import weights as weights_lib
-from benchmark.reference import flops, folds, model, runs
+from benchmark.reference import flops, folds, model, networks, runs
 
 from deepards_tpu_torch.config.config import Configuration
 from deepards_tpu_torch.models.layers import bn_row_mask
@@ -70,8 +70,10 @@ def test_cnn_linear_logits_and_gradients_equal_the_port():
         out = net(x, False, gen)
     loss = losses.bce_with_logits(out, target, mask)
     grads = torch.autograd.grad(loss, list(net.parameters()))
-    ref_loss, ref_grads = runs.cnn_linear_loss_grads(w, x, target, mask, drop)
-    ref_logits = model.cnn_linear_logits(w, x, mask, drop)
+    net_ref = networks.load("cnn_linear")
+    ref_loss, ref_grads = runs.samples_loss_grads(net_ref, w, x, target, mask,
+                                                  drop)
+    ref_logits = net_ref.logits(w, model.features(w, x, False, drop, mask))
     assert torch.allclose(out, ref_logits, atol=1e-5)
     assert abs(float(loss.detach()) - float(ref_loss)) < 1e-6
     for (name, _), g in zip(net.named_parameters(), grads):
@@ -123,6 +125,34 @@ def test_cnn_linear_step_equals_the_port_step():
            for ids in steps]
     assert np.allclose(got, want["losses"], atol=1e-6)
     assert_changes(net, w, want["change"])
+
+
+def test_nested_test_logits_equal_the_port_eval_step():
+    """A nested test epoch: the port's eval step over each patient padded
+    to its bucket, dropout drawn over the bucket, against the
+    reference's test logits of the real windows alone (blocks of 4)."""
+    w = weights_lib.make_weights("cnn_to_nested_lstm", S, 8, "cpu")
+    net = port_model("cnn_to_nested_lstm", w)
+    opt = make_optimizer(net.parameters(), clip_grad=True, clip_val=0.01)
+    state = TrainState(net, opt, torch.Generator().manual_seed(23))
+    _, eval_step = make_nested_steps(losses.bce_with_logits)
+    raw = torch.randn(30, S, 1, 224,
+                      generator=torch.Generator().manual_seed(5))
+    targets = torch.eye(2)[torch.tensor([0] * 11 + [1] * 19)]
+    steps = [list(range(0, 11)), list(range(11, 30))]
+    masks = [np.ones(len(s), np.float32) for s in steps]
+    want, want_losses = runs.test_logits(
+        "cnn_to_nested_lstm", w, raw, targets, steps, masks, np.zeros(1),
+        np.ones(1), 23, [folds.bucket(len(s)) * S for s in steps], block=4)
+    for ids, ref, ref_loss in zip(steps, want, want_losses):
+        size = folds.bucket(len(ids))
+        data = torch.zeros(1, size, S, 1, 224)
+        data[0, :len(ids)] = raw[ids]
+        mask = torch.zeros(1, size)
+        mask[0, :len(ids)] = 1.0
+        loss, out = eval_step(state, data, targets[ids[:1]], mask)
+        assert torch.allclose(out[0, :len(ids)], ref, atol=1e-5)
+        assert abs(float(loss) - ref_loss) < 1e-6
 
 
 @pytest.mark.parametrize("network,train,gflop", [

@@ -192,8 +192,6 @@ class StepClock:
         if self._epoch_t0 is not None:
             self.preambles.append(time.perf_counter() - self._epoch_t0)
             self._epoch_t0 = None
-        if mask is not None:
-            self.count_rows(mask)
         if self.stretch and self.calls == self.stretch[0]:
             from torch.profiler import ProfilerActivity, profile
 
@@ -218,6 +216,10 @@ class StepClock:
             self._prof.stop()
             self.profile, self._prof = self._prof, None
             self.overhead += time.perf_counter() - t0
+        if mask is not None:
+            # the mask as the step read it; a traced stretch holds the
+            # counts of all its steps but its last
+            self.count_rows(mask)
         return out
 
     def close(self):
